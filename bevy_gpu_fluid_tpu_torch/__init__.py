@@ -11,9 +11,10 @@ This package imports torch and numpy only.
 from .core.params import FluidParams, IntegrateConfig, GridSpec2D, GRAVITY_Y
 from .core.state import (FluidState, from_positions, init_grid, demo_block_5k,
                          make_state)
+from .core.simulation import Simulation
 
 __all__ = [
     "FluidParams", "IntegrateConfig", "GridSpec2D", "GRAVITY_Y",
     "FluidState", "from_positions", "init_grid", "demo_block_5k",
-    "make_state",
+    "make_state", "Simulation",
 ]

@@ -49,11 +49,7 @@ __global__ void density_kernel(const float* __restrict__ x,
       for (int dy = -1; dy <= 1; ++dy) {
         const long long j =
             (static_cast<long long>(row + dy) * cap + kj) * nx_pad + c;
-        const float ddx = xi - x[j];
-        const float ddy = yi - y[j];
-        const float r2 = ddx * ddx + ddy * ddy;
-        const float d = fmaxf(h2 - r2, 0.0f);  // the r < h gate
-        acc += d * d * d;
+        acc += bgf::poly6_term(xi - x[j], yi - y[j], h2);
       }
     }
   }

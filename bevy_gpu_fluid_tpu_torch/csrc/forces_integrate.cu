@@ -23,15 +23,14 @@
 // divergence on the kj bound inside a warp).  The displacement max is a
 // warp-shuffle and shared-memory reduction per block, then one atomicMax on
 // the float bits (all values are >= +0, so integer order is float order) into
-// a scalar the host zeroes on the same stream.  The launch covers the ghost
-// blocks and writes their fills (FAR positions, zero velocities).
+// a scalar the host zeroes on the same stream (bgf::block_max_atomic).  The
+// launch covers the ghost blocks and writes their fills (FAR positions, zero
+// velocities).  The pair term and the epilogue are bgf_common.cuh's, shared
+// with K5.
 
 #include "bgf_common.cuh"
 
 namespace {
-
-constexpr float kEps2 = 1.0e-12f;    // EPS^2, EPS = 1e-6
-constexpr float kGravityY = -9.81f;  // core/params.GRAVITY_Y
 
 __global__ void forces_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
@@ -40,9 +39,8 @@ __global__ void forces_integrate_kernel(
     const float* __restrict__ ref_y, const int* __restrict__ occ,
     float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
     float* __restrict__ ovy, unsigned int* __restrict__ disp_bits, int cap,
-    int nx_pad, int tb, int nb, long long total, float h, float m_half,
-    float spiky_c, float visc_mc, float rho0, float k, float dt, float x_min,
-    float x_max, float bounce, float floor_y) {
+    int nx_pad, int tb, int nb, long long total, bgf::ForceConsts fc,
+    float rho0, float k, bgf::IntegrateConsts ic) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   float d2 = 0.0f;
@@ -70,31 +68,16 @@ __global__ void forces_integrate_kernel(
             const long long j =
                 (static_cast<long long>(row + dy) * cap + kj) * nx_pad + c;
             const float rho_j = rho[j];
-            const float p_j = k * fmaxf(rho_j - rho0, 0.0f);
-            const float ir_j = 1.0f / fmaxf(rho_j, 1.0e-12f);
-            const float ddx = xi - x[j];
-            const float ddy = yi - y[j];
-            const float r2 = ddx * ddx + ddy * ddy;
-            const float inv_r = rsqrtf(r2 + kEps2);
-            const float dist = r2 * inv_r;
-            const float hr = fmaxf(h - dist, 0.0f);
-            const float fac_p =
-                m_half * (p_i + p_j) * ir_j * (spiky_c * hr * hr * inv_r);
-            const float fac_v = visc_mc * ir_j * hr;
-            ax += fac_p * ddx + fac_v * (vx[j] - vxi);
-            ay += fac_p * ddy + fac_v * (vy[j] - vyi);
+            bgf::add_pair_accel(xi - x[j], yi - y[j],
+                                p_i + k * fmaxf(rho_j - rho0, 0.0f),
+                                1.0f / fmaxf(rho_j, 1.0e-12f), vx[j] - vxi,
+                                vy[j] - vyi, fc, ax, ay);
           }
         }
       }
-      const bool live = xi < 1.0e8f;
-      float nvx = vxi + ax * dt;
-      float nvy = vyi + (ay + kGravityY) * dt;
-      float nx = xi + nvx * dt;
-      float ny = yi + nvy * dt;
-      if (ny < floor_y) { ny = floor_y; nvy = nvy * bounce; }
-      if (nx > x_max) { nx = x_max; nvx = nvx * bounce; }
-      if (nx < x_min) { nx = x_min; nvx = nvx * bounce; }
-      if (!live) { nx = xi; ny = yi; nvx = 0.0f; nvy = 0.0f; }
+      float nx, ny, nvx, nvy;
+      const bool live =
+          bgf::integrate(xi, yi, vxi, vyi, ax, ay, ic, nx, ny, nvx, nvy);
       ox[t] = nx;
       oy[t] = ny;
       ovx[t] = nvx;
@@ -106,21 +89,7 @@ __global__ void forces_integrate_kernel(
       }
     }
   }
-  // block max of d2, then one atomic per block
-  for (int off = 16; off > 0; off >>= 1)
-    d2 = fmaxf(d2, __shfl_xor_sync(0xffffffffu, d2, off));
-  __shared__ float warp_max[bgf::kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = d2;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < bgf::kThreads / 32 ? warp_max[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const unsigned int bits = __float_as_uint(v);
-    if (lane == 0 && bits != 0u) atomicMax(disp_bits, bits);
-  }
+  bgf::block_max_atomic(d2, disp_bits);
 }
 
 }  // namespace
@@ -138,7 +107,8 @@ extern "C" int bgf_forces_integrate(
   forces_integrate_kernel<<<bgf::blocks_for(total), bgf::kThreads, 0,
                             stream>>>(
       x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy,
-      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb, total, h,
-      m_half, spiky_c, visc_mc, rho0, k, dt, x_min, x_max, bounce, floor_y);
+      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb, total,
+      bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k,
+      bgf::IntegrateConsts{dt, x_min, x_max, bounce, floor_y});
   return static_cast<int>(cudaGetLastError());
 }

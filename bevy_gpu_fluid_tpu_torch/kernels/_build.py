@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-for ``sm_90a`` (Hopper), without fast math:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, to an object for ``sm_90a`` (Hopper), without fast
+math; one more ``nvcc`` links the objects into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o libbgf_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o libbgf_kernels.so *.o
 
 The library goes to ``bevy_gpu_fluid_tpu_torch/_build/<source hash>/``, so
 an edit to any source builds anew and an unchanged tree reuses the last
@@ -38,7 +41,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libbgf_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -55,6 +58,14 @@ SIGNATURES = {
     # | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny | origin_x, origin_y, inv
     # | stream
     "bgf_reslot": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_P],
+    # x, y, occ, out | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny, P
+    # | origin_x, origin_y, cell_size, cell_size / P, h2, coeff | stream
+    "bgf_field": [_P] * 4 + [_I] * 9 + [_F] * 6 + [_P],
+    # x, y, vx, vy, ref_x, ref_y, occ, ox, oy, ovx, ovy, orho, disp
+    # | ny_pad, cap, nx_pad, tb, nb
+    # | h, h2, coeff, m_half, spiky_c, visc_mc, rho0, k, dt, x_min, x_max,
+    #   bounce, floor_y | stream
+    "bgf_mono_step": [_P] * 13 + [_I] * 5 + [_F] * 13 + [_P],
 }
 
 
@@ -79,24 +90,42 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands as parallel processes; return their joined output,
+    or raise with it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return log
+
+
 def build() -> tuple[Path, float, str]:
-    """Compile the library if this source hash has no build yet.  Returns
-    (library path, build seconds (0.0 when reused), compiler log)."""
+    """Compile the library if this source hash has no build yet: one nvcc
+    per source in parallel, then the link.  Returns (library path, build
+    seconds (0.0 when reused), compiler log)."""
     out = BUILD_DIR / source_hash() / LIB_NAME
     log_path = out.with_name("build.log")
     if out.exists():
         return out, 0.0, log_path.read_text() if log_path.exists() else ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp), *cu]
+    tag = os.getpid()
+    cu = sorted(SRC_DIR.glob("*.cu"))
+    objs = [out.with_name(f"{p.stem}.{tag}.o") for p in cu]
+    tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o",
+                     str(o), str(p)] for p, o in zip(cu, objs)])
+    log += _run_all([[nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                      *(str(o) for o in objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    for o in objs:
+        o.unlink()
     log_path.write_text(log)
     os.replace(tmp, out)
     return out, seconds, log

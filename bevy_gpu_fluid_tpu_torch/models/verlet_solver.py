@@ -3,9 +3,11 @@
 
 Particles are binned once into cells of ``cell_size = skin_factor * h``;
 the slot assignment is then FROZEN and the state stays dense between
-rebins.  A step is two kernels: density (K1) and the fused
+rebins.  A step is two kernels, density (K1) and the fused
 forces + Euler + bounce + skin-trigger pass (K2), both reading neighbours
-from the frozen 3x3 slot window.  A rebin fires when some particle has
+from the frozen 3x3 slot window; on grids under ``MONO_MAX_BLOCKS`` row
+blocks it is the one mono kernel (K5) that does both, as in the
+reference.  A rebin fires when some particle has
 moved more than half the skin ``(cell_size - h) / 2`` since the last one
 (or the bins are ``max_age`` steps old): it is the sort-free local reslot
 (K3), so no step ever sorts, scatters or gathers.
@@ -17,8 +19,8 @@ later rebin once their cell has room and they satisfy the skin invariant
 |v| dt <= skin_half.  ``lost`` counts particles missed by the +-1 reslot
 window, impossible while the skin invariant holds.
 
-The port covers the fused, ref-based, non-planar posture of the reference
-(no mono kernel: K1+K2 run at every grid size).  The step loop is a Python
+The port covers the fused, ref-based, non-planar posture of the reference,
+with the mono kernel on small grids.  The step loop is a Python
 loop, where the reference runs one ``lax.scan`` with a ``lax.cond`` rebin:
 the rebin decision reads ``disp2`` on the host, one device sync per step
 (the step counters ``age``, ``step`` and ``rebin_count`` are host ints, so
@@ -26,6 +28,11 @@ the rebin decision reads ``disp2`` on the host, one device sync per step
 steps, or a check every few steps, pays for itself is a later decision,
 to be taken on a measurement.  A rebin also syncs once to read its
 counters and decide whether the recovery pass runs.
+
+Frames (``Session.run_frame``/``run_frames``/``frame``) render the
+density field straight from the resident planes (render/raster.py, kernel
+K4); ``Session.kick`` applies the drag impulse to them in place of a
+per-particle state.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ import torch.nn.functional as F
 
 from ..core.params import FluidParams, GridSpec2D, IntegrateConfig
 from ..core.state import FluidState
+from ..interact.impulse import IMPULSE, apply_impulse_arrays
 from ..ops import reslot as reslot_ops
 from ..ops.binning import FAR, bin_particles, cell_index, inv_cell, to_dense
 from ..ops.kernels import eos_pressure, self_density
+from ..render import raster
 from . import cuda_solver
 
 SPILL_CAP = 256  # default spill-buffer entries (recovery pool size)
@@ -247,7 +256,8 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                     n: int | None = None):
     """The dense step as ``(pure_step, rebin, need)``: ``need(sim)`` is the
     rebin trigger (a host bool), ``rebin(sim)`` the local reslot with
-    recovery, ``pure_step(sim)`` the two kernels.  ``n`` (the particle
+    recovery, ``pure_step(sim)`` the step's kernels (K5 on grids under
+    ``MONO_MAX_BLOCKS`` row blocks, else K1 + K2).  ``n`` (the particle
     count) arms overflow recovery; with ``n=None`` drops are counted but
     the spill buffer is never refilled or drained.  Requires
     ``grid.cell_size > params.h`` (a real skin)."""
@@ -256,6 +266,7 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
     skin2 = float(skin_half * skin_half)
     q = skin_half / cfg.dt
     vmax2 = q * q
+    mono = grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
 
     def rebin(sim: DenseSim) -> DenseSim:
         xd, yd, vxd, vyd, idx_d, cnt = reslot(
@@ -290,11 +301,16 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
         return sim.age >= max_age or float(sim.disp2) > skin2
 
     def pure_step(sim: DenseSim) -> DenseSim:
-        rho_d = cuda_solver.density_cuda(sim.xd, sim.yd, params, grid,
-                                         sim.occ)
-        xd, yd, vxd, vyd, disp2 = cuda_solver.forces_integrate_cuda(
-            sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd, sim.ref_yd,
-            params, cfg, grid, sim.occ)
+        if mono:
+            xd, yd, vxd, vyd, rho_d, disp2 = cuda_solver.mono_step_cuda(
+                sim.xd, sim.yd, sim.vxd, sim.vyd, sim.ref_xd, sim.ref_yd,
+                params, cfg, grid, sim.occ)
+        else:
+            rho_d = cuda_solver.density_cuda(sim.xd, sim.yd, params, grid,
+                                             sim.occ)
+            xd, yd, vxd, vyd, disp2 = cuda_solver.forces_integrate_cuda(
+                sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd,
+                sim.ref_yd, params, cfg, grid, sim.occ)
         return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                                    rho_d=rho_d, disp2=disp2,
                                    age=sim.age + 1, step=sim.step + 1)
@@ -305,7 +321,7 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
 def make_step(params: FluidParams, cfg: IntegrateConfig, grid: GridSpec2D,
               max_age: int = 64, n: int | None = None):
     """The dense step fn DenseSim -> DenseSim: rebin if needed, then the
-    two kernels (see ``make_step_parts``)."""
+    step's kernels (see ``make_step_parts``)."""
     pure_step, rebin, need = make_step_parts(params, cfg, grid, max_age, n)
 
     def step(sim: DenseSim) -> DenseSim:
@@ -345,12 +361,14 @@ def multi_step(state: FluidState, params: FluidParams, cfg: IntegrateConfig,
 
 class Session:
     """Persistent dense-resident run: ``run(k)`` advances k steps on the
-    device with no per-call rebinning, and ``state()`` materializes a
-    FluidState only when asked.  ``device`` is where the dense state lives
-    (the input state is copied there)."""
+    device with no per-call rebinning, ``run_frame``/``run_frames``/
+    ``frame`` render the density field from the resident planes, and
+    ``state()`` materializes a FluidState only when asked.  ``device`` is
+    where the dense state lives (the input state is copied there); it
+    defaults to the GPU."""
 
     def __init__(self, state: FluidState, params: FluidParams,
-                 cfg: IntegrateConfig, grid: GridSpec2D, *, device,
+                 cfg: IntegrateConfig, grid: GridSpec2D, *, device="cuda",
                  max_age: int = 64, spill_cap: int = SPILL_CAP,
                  recovery: bool = True):
         """``recovery=False`` reverts overflow handling to the counted-loss
@@ -360,19 +378,68 @@ class Session:
         self.grid = grid
         self.n = state.n
         self.device = torch.device(device)
+        self._spill_cap = spill_cap
+        self._recovery = recovery
         self._pure_step, self._rebin, self._need = make_step_parts(
             params, cfg, grid, max_age, n=self.n if recovery else None)
-        self.sim = init_dense(state.to(self.device), grid, spill_cap,
-                              collect_spill=recovery)
+        self.reset(state)
+
+    def reset(self, state: FluidState) -> None:
+        """Re-seed the resident DenseSim from a per-particle FluidState
+        (fresh binning: the rebin age and skin references restart, the step
+        counter continues from ``state.step``)."""
+        if state.n != self.n:
+            raise ValueError(f"reset with n={state.n}, Session built for "
+                             f"n={self.n}")
+        self.sim = init_dense(state.to(self.device), self.grid,
+                              self._spill_cap, collect_spill=self._recovery)
 
     def run(self, n_steps: int) -> None:
         """Advance n_steps: per step, rebin if the trigger fired, then the
-        two kernels.  Returns as soon as the last step is enqueued (apart
-        from the per-step trigger read)."""
+        step's kernels.  Returns as soon as the last step is enqueued
+        (apart from the per-step trigger read)."""
         for _ in range(n_steps):
             if self._need(self.sim):
                 self.sim = self._rebin(self.sim)
             self.sim = self._pure_step(self.sim)
+
+    def frame(self, px_per_cell: int = 2,
+              mode: str = "density") -> torch.Tensor:
+        """uint8 RGB density-field frame [ny*P, nx*P, 3] (row 0 = top) of
+        the resident state, no stepping."""
+        return raster.field_frame(self.sim.xd, self.sim.yd, self.params,
+                                  self.grid, px_per_cell, mode)
+
+    def run_frame(self, substeps: int = 16, px_per_cell: int = 2,
+                  mode: str = "density") -> torch.Tensor:
+        """``substeps`` steps, then the field frame (the interactive frame
+        loop)."""
+        self.run(substeps)
+        return self.frame(px_per_cell, mode)
+
+    def run_frames(self, n_frames: int, substeps: int = 16,
+                   px_per_cell: int = 2,
+                   mode: str = "density") -> torch.Tensor:
+        """``n_frames`` x (``substeps`` steps + field frame), stacked as
+        uint8 [n_frames, H, W, 3]: the same trajectory and frames as
+        ``n_frames`` sequential ``run_frame`` calls (the throughput shape:
+        offline export, video encode).  Device footprint: n_frames * H * W
+        * 3 bytes."""
+        return torch.stack([self.run_frame(substeps, px_per_cell, mode)
+                            for _ in range(n_frames)])
+
+    def kick(self, x: float, y: float, dir_x: float, dir_y: float,
+             impulse: float = IMPULSE) -> None:
+        """Drag impulse straight on the resident dense state (float32
+        arithmetic throughout); empty slots keep zero velocity."""
+        f = np.float32
+        sim = self.sim
+        vxd, vyd = apply_impulse_arrays(sim.xd, sim.yd, sim.vxd, sim.vyd,
+                                        f(x), f(y), f(dir_x), f(dir_y),
+                                        f(impulse))
+        live = sim.xd < FAR * 0.5
+        self.sim = dataclasses.replace(sim, vxd=torch.where(live, vxd, 0.0),
+                                       vyd=torch.where(live, vyd, 0.0))
 
     def state(self) -> FluidState:
         """Materialize the per-particle FluidState (on demand only)."""

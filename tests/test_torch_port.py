@@ -268,7 +268,11 @@ def test_port_imports_no_jax():
     code = ("import sys, bevy_gpu_fluid_tpu_torch, "
             "bevy_gpu_fluid_tpu_torch.models.verlet_solver, "
             "bevy_gpu_fluid_tpu_torch.models.reference, "
-            "bevy_gpu_fluid_tpu_torch.utils.convert; "
+            "bevy_gpu_fluid_tpu_torch.utils.convert, "
+            "bevy_gpu_fluid_tpu_torch.render.raster, "
+            "bevy_gpu_fluid_tpu_torch.render.pump, "
+            "bevy_gpu_fluid_tpu_torch.interact.impulse, "
+            "bevy_gpu_fluid_tpu_torch.core.simulation; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'bevy_gpu_fluid_tpu.')) "
             "or m == 'bevy_gpu_fluid_tpu']; "
