@@ -9,11 +9,21 @@ params + config + grid + solver behind a small stateful API.
 Solvers: ``"verlet"`` (the default) holds a RESIDENT
 ``verlet_solver.Session``: the dense slot state stays on the device across
 ``run``/``run_frame``/``run_frames``/``kick``, and the per-particle
-``state`` materializes lazily.  ``"golden"`` steps the all-pairs reference
-model (models/reference.py).  ``"pallas"`` and ``"xla"`` (the eager grid
-solvers, which need kernel K8), ``validate``/``validate_every`` (the
-validator) and ``save``/``load`` (checkpoints) are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+``state`` materializes lazily.  ``"pallas"`` is the eager grid solver on
+kernels K1 + K8 (``cuda_solver.multi_step``: a sort-based binning every
+step), ``"xla"`` the same glue with the plain-torch stencils
+(``grid_solver.multi_step``), and ``"golden"`` the all-pairs reference
+model (models/reference.py).  For the eager solvers ``overflow`` is the
+largest per-step count seen.
+
+``validate()`` is a golden-model spot check (utils/validator.py):
+``mode="full"`` re-evaluates rho, p and the accelerations through this
+simulation's own stencils (K1 + K8 for ``"verlet"`` and ``"pallas"``);
+``mode="fields"`` checks the stored rho and p.  With ``validate_every=K``,
+``run`` runs it once K steps have passed since the last check and keeps the
+report in ``last_parity``; ``ParityError`` is raised on a violation.
+``save``/``load`` (checkpoints) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Frame modes: ``"density"``/``"const"`` are per-particle splats at the
 ``raster_width``-wide ``spec``; ``"field"``/``"field_const"`` are the
@@ -28,17 +38,15 @@ import math
 import torch
 
 from ..interact.impulse import apply_impulse
+from ..models import cuda_solver, grid_solver, verlet_solver
 from ..models import reference as golden
-from ..models import verlet_solver
 from ..ops.binning import FAR, bin_particles, to_dense
 from ..render import raster
+from ..utils import validator
 from .params import FluidParams, GridSpec2D, IntegrateConfig
 from .state import FluidState, init_grid
 
 _NOT_PORTED = {
-    "pallas": "the eager pallas solver needs kernel K8 (ROADMAP B2)",
-    "xla": "the eager XLA grid solver is not ported (ROADMAP B2)",
-    "validate": "utils/validator.py is not ported (ROADMAP B3)",
     "save": "checkpoints are not ported (ROADMAP B4)",
 }
 
@@ -51,20 +59,18 @@ class Simulation:
                  solver: str = "verlet", raster_width: int = 512,
                  y_view_max: float | None = None, validate_every: int = 0,
                  device="cuda"):
-        if solver in ("pallas", "xla"):
-            raise NotImplementedError(f"solver={solver!r}: "
-                                      f"{_NOT_PORTED[solver]}")
-        if solver not in ("verlet", "golden"):
+        if solver not in ("verlet", "pallas", "xla", "golden"):
             raise ValueError(f"unknown solver {solver!r}")
-        if validate_every > 0:
-            raise NotImplementedError(f"validate_every: "
-                                      f"{_NOT_PORTED['validate']}")
         self.params = params
         self.cfg = cfg
         self.grid = grid
         self.solver = solver
         self.device = torch.device(device)
-        self._dense_cache = None   # (state object, (xd, yd)), golden field
+        self.validate_every = validate_every
+        self.last_parity = None
+        self._steps_since_validate = 0
+        self._overflow = 0         # eager solvers: largest per-step count
+        self._dense_cache = None   # (state object, (xd, yd)): field frames
         self.spec = raster.RasterSpec.fit(
             float(cfg.x_min), float(cfg.x_max), float(cfg.floor_y),
             y_view_max if y_view_max is not None
@@ -98,21 +104,24 @@ class Simulation:
 
     @property
     def overflow(self) -> int:
-        """Cumulative capacity-overflow count (0 in all standard scenes; the
-        golden solver has no cells to overflow)."""
-        return 0 if self._session is None else self._session.overflow
+        """Capacity overflow: the Session's cumulative count on the verlet
+        engine, the largest per-step count seen on the eager solvers, 0 on
+        the golden one (it has no cells)."""
+        if self._session is not None:
+            return self._session.overflow
+        return self._overflow
 
     # ---- scene builders ---------------------------------------------------
     @staticmethod
     def _grid(solver: str, x_min: float, x_max: float, y_max: float,
               cap: int) -> GridSpec2D:
         """The verlet solver's skin grid, or a plain grid of cell h for the
-        others (the reference's grid_solver.default_grid)."""
+        others."""
         if solver == "verlet":
             return verlet_solver.default_grid(0.045, x_min, x_max,
                                               y_max=y_max, cap=cap)
-        return GridSpec2D.from_bounds(h=0.045, x_min=x_min, x_max=x_max,
-                                      y_min=0.0, y_max=y_max, cap=cap)
+        return grid_solver.default_grid(0.045, x_min, x_max, y_max=y_max,
+                                        cap=cap)
 
     @staticmethod
     def dam_break(n: int = 5041, solver: str = "verlet", cap: int = 8,
@@ -144,19 +153,49 @@ class Simulation:
                           y_view_max=y_max, device=device, **kw)
 
     # ---- stepping / interaction / rendering --------------------------------
-    def run(self, n_steps: int) -> None:
-        """Advance n_steps.  Returns nothing: read ``state`` when the
-        per-particle fields are wanted (on the verlet engine that extracts
-        them from the dense planes)."""
+    def _advance(self, n_steps: int) -> None:
         if self._session is not None:
             self._session.run(n_steps)
             self._dirty = True
             return
-        self._state = golden.multi_step(self._state, self.params, self.cfg,
-                                        n_steps)
+        if self.solver == "golden":
+            self._state = golden.multi_step(self._state, self.params,
+                                            self.cfg, n_steps)
+            return
+        multi = (cuda_solver.multi_step if self.solver == "pallas"
+                 else grid_solver.multi_step)
+        self._state, diag = multi(self._state, self.params, self.cfg,
+                                  self.grid, n_steps)
+        self._overflow = max(self._overflow, diag.overflow)
+
+    def run(self, n_steps: int) -> None:
+        """Advance n_steps.  Returns nothing: read ``state`` when the
+        per-particle fields are wanted (on the verlet engine that extracts
+        them from the dense planes).  With ``validate_every=K`` a parity
+        check runs once K or more steps have passed since the last one
+        (``ParityError`` on a violation; the report in ``last_parity``)."""
+        self._advance(n_steps)
+        if self.validate_every > 0:
+            self._steps_since_validate += n_steps
+            if self._steps_since_validate >= self.validate_every:
+                self._steps_since_validate = 0
+                self.last_parity = self.validate()
 
     def validate(self, raise_on_fail: bool = True, mode: str = "full"):
-        raise NotImplementedError(f"validate: {_NOT_PORTED['validate']}")
+        """One golden-model parity spot check.  ``mode="full"``: rho, p and
+        the accelerations re-evaluated through this simulation's stencils
+        (the plain-torch ones for ``"xla"``, K1 + K8 otherwise) at the
+        current positions, at the in-engine tolerances (1% relative, 0.5
+        absolute on the accelerations).  ``mode="fields"`` (and the golden
+        solver, which has no accelerated path): the stored rho and p."""
+        if mode == "fields" or self.solver == "golden":
+            return validator.validate_fields(self.state, self.params,
+                                             raise_on_fail=raise_on_fail)
+        stencils = (grid_solver.XLA_STENCILS if self.solver == "xla"
+                    else cuda_solver.make_stencils(self.grid))
+        return validator.validate_accelerated(
+            self.state, self.params, self.grid, stencils,
+            raise_on_fail=raise_on_fail)
 
     def save(self, path: str) -> None:
         raise NotImplementedError(f"save: {_NOT_PORTED['save']}")
@@ -180,7 +219,7 @@ class Simulation:
 
     def _field_frame(self, mode: str) -> torch.Tensor:
         """Field frame of the current state: from the resident planes, or
-        (golden) from a binning cached per state object."""
+        (the other solvers) from a binning cached per state object."""
         fmode = "const" if mode == "field_const" else "density"
         if self._session is not None:
             return self._session.frame(px_per_cell=2, mode=fmode)
@@ -203,8 +242,9 @@ class Simulation:
 
     def run_frame(self, substeps: int = 16,
                   mode: str = "density") -> torch.Tensor:
-        """Advance ``substeps`` steps and rasterize."""
-        self.run(substeps)
+        """Advance ``substeps`` steps and rasterize (no parity check: that
+        is ``run``'s)."""
+        self._advance(substeps)
         return self.frame(mode)
 
     def run_frames(self, n_frames: int, substeps: int = 16,

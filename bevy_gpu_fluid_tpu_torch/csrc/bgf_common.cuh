@@ -95,6 +95,62 @@ __device__ __forceinline__ bool integrate(float xi, float yi, float vxi,
   return live;
 }
 
+// ---- the rebin's candidate scan, shared by K3 (reslot) and K6 (select) so
+// that both assign slots with the same arithmetic, bit for bit.
+
+struct CellGrid {  // single-chip clip [0, nx-1] x [0, ny-1], the grid origin
+  int nx, ny, row0;
+  float origin_x, origin_y, inv;
+};
+
+// clip(floor((v - origin) * inv), lo, hi), rounded as the PyTorch twins
+// round it (no FMA contraction: ops/binning.cell_index).
+__device__ __forceinline__ int cell_of(float v, float origin, float inv,
+                                       int lo, int hi) {
+  const float c = floorf(__fmul_rn(__fsub_rn(v, origin), inv));
+  return static_cast<int>(
+      fminf(fmaxf(c, static_cast<float>(lo)), static_cast<float>(hi)));
+}
+
+// Routing code of candidate (kj, dx, dy): kj * 9 + (dx + 1) * 3 + (dy + 1),
+// the TPU kernels' `_code_of` (-1 = empty).
+__device__ __forceinline__ int code_of(int kj, int dx, int dy) {
+  return kj * 9 + (dx + 1) * 3 + (dy + 1);
+}
+
+// Scans the 3x3 x kmax candidate slots of target cell (row, col) in
+// (kj, dx, dy) order; a candidate matches when it is live (x < FAR/2) and
+// its clipped cell is the target.  Calls on_match(rank, j, code) for the
+// first cap matches (j the candidate's flat index) and returns the match
+// count, which may exceed cap.
+template <class OnMatch>
+__device__ __forceinline__ int scan_candidates(
+    const float* __restrict__ x, const float* __restrict__ y, int row,
+    int col, int kmax, int cap, int nx_pad, const CellGrid& g,
+    OnMatch on_match) {
+  const int tgt_cx = col - 1;
+  const int tgt_cy = row - g.row0;
+  int count = 0;
+  for (int kj = 0; kj < kmax; ++kj) {
+    for (int dx = -1; dx <= 1; ++dx) {
+      const int c = wrap_col(col + dx, nx_pad);
+      for (int dy = -1; dy <= 1; ++dy) {
+        const long long j =
+            (static_cast<long long>(row + dy) * cap + kj) * nx_pad + c;
+        const float cx = x[j];
+        if (!(cx < kHalfFar)) continue;
+        const float cy = y[j];
+        if (cell_of(cx, g.origin_x, g.inv, 0, g.nx - 1) != tgt_cx ||
+            cell_of(cy, g.origin_y, g.inv, 0, g.ny - 1) != tgt_cy)
+          continue;
+        if (count < cap) on_match(count, j, code_of(kj, dx, dy));
+        ++count;
+      }
+    }
+  }
+  return count;
+}
+
 // Block max of d2 >= 0 (warp shuffles, then shared memory), then one
 // atomicMax on the float bits into *bits (non-negative floats order as
 // unsigned ints; the host zeroes it on the same stream).  Every thread of a

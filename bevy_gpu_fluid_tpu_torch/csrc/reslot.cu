@@ -9,9 +9,10 @@
 // output slot n (the Pallas kernel's one-hot select on rank == k); matches
 // beyond cap are only counted.  Outputs: the five rebinned planes (x, y,
 // vx, vy, idx; empty slots FAR/FAR/0/0/-1) and the per-cell match counts
-// int32 [ny_pad, nx_pad].  The cell arithmetic uses __fsub_rn/__fmul_rn and
-// floorf so it rounds exactly as the PyTorch twin (ops/reslot.reslot_torch):
-// the slot assignment is bitwise the twin's.
+// int32 [ny_pad, nx_pad].  The scan is bgf::scan_candidates, shared with
+// K6 (select.cu); its cell arithmetic uses __fsub_rn/__fmul_rn and floorf so
+// it rounds exactly as the PyTorch twin (ops/reslot.reslot_torch): the slot
+// assignment is bitwise the twin's.
 //
 // What bounds it on the H100: device memory.  It moves 5 planes in, 5 out
 // and the count plane with a few float and integer ops per candidate:
@@ -28,21 +29,14 @@
 
 namespace {
 
-__device__ __forceinline__ int cell_of(float v, float origin, float inv,
-                                       int lo, int hi) {
-  const float c = floorf(__fmul_rn(__fsub_rn(v, origin), inv));
-  return static_cast<int>(
-      fminf(fmaxf(c, static_cast<float>(lo)), static_cast<float>(hi)));
-}
-
 __global__ void reslot_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
     const int* __restrict__ idx, const int* __restrict__ occ,
     float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
     float* __restrict__ ovy, int* __restrict__ oidx, int* __restrict__ cnt,
-    int cap, int nx_pad, int tb, int nb, int row0, int nx, int ny,
-    long long n_cells, float origin_x, float origin_y, float inv) {
+    int cap, int nx_pad, int tb, int nb, long long n_cells,
+    bgf::CellGrid g) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (t >= n_cells) return;
@@ -51,33 +45,16 @@ __global__ void reslot_kernel(
   const long long out0 = static_cast<long long>(row) * cap * nx_pad + col;
   int count = 0;
   if (bgf::interior_row(row, tb, nb)) {
-    const int kmax = bgf::block_kmax(occ, nb, row / tb - 1);
-    const int tgt_cx = col - 1;
-    const int tgt_cy = row - row0;
-    for (int kj = 0; kj < kmax; ++kj) {
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int c = bgf::wrap_col(col + dx, nx_pad);
-        for (int dy = -1; dy <= 1; ++dy) {
-          const long long j =
-              (static_cast<long long>(row + dy) * cap + kj) * nx_pad + c;
-          const float cx = x[j];
-          if (!(cx < bgf::kHalfFar)) continue;
-          const float cy = y[j];
-          if (cell_of(cx, origin_x, inv, 0, nx - 1) != tgt_cx ||
-              cell_of(cy, origin_y, inv, 0, ny - 1) != tgt_cy)
-            continue;
-          if (count < cap) {
-            const long long o = out0 + static_cast<long long>(count) * nx_pad;
-            ox[o] = cx;
-            oy[o] = cy;
-            ovx[o] = vx[j];
-            ovy[o] = vy[j];
-            oidx[o] = idx[j];
-          }
-          ++count;
-        }
-      }
-    }
+    count = bgf::scan_candidates(
+        x, y, row, col, bgf::block_kmax(occ, nb, row / tb - 1), cap, nx_pad,
+        g, [&](int rank, long long j, int) {
+          const long long o = out0 + static_cast<long long>(rank) * nx_pad;
+          ox[o] = x[j];
+          oy[o] = y[j];
+          ovx[o] = vx[j];
+          ovy[o] = vy[j];
+          oidx[o] = idx[j];
+        });
   }
   for (int s = min(count, cap); s < cap; ++s) {
     const long long o = out0 + static_cast<long long>(s) * nx_pad;
@@ -102,6 +79,6 @@ extern "C" int bgf_reslot(const float* x, const float* y, const float* vx,
   const long long n_cells = static_cast<long long>(ny_pad) * nx_pad;
   reslot_kernel<<<bgf::blocks_for(n_cells), bgf::kThreads, 0, stream>>>(
       x, y, vx, vy, idx, occ, ox, oy, ovx, ovy, oidx, cnt, cap, nx_pad, tb,
-      nb, row0, nx, ny, n_cells, origin_x, origin_y, inv);
+      nb, n_cells, bgf::CellGrid{nx, ny, row0, origin_x, origin_y, inv});
   return static_cast<int>(cudaGetLastError());
 }

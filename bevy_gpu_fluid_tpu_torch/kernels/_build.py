@@ -66,6 +66,15 @@ SIGNATURES = {
     # | h, h2, coeff, m_half, spiky_c, visc_mc, rho0, k, dt, x_min, x_max,
     #   bounce, floor_y | stream
     "bgf_mono_step": [_P] * 13 + [_I] * 5 + [_F] * 13 + [_P],
+    # x, y, vx, vy, rho, occ, ax, ay | ny_pad, cap, nx_pad, tb, nb
+    # | h, m_half, spiky_c, visc_mc, rho0, k | stream
+    "bgf_forces": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
+    # x, y, occ, code, cnt | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny,
+    # code_bytes | origin_x, origin_y, inv | stream
+    "bgf_select": [_P] * 5 + [_I] * 9 + [_F] * 3 + [_P],
+    # payload, code, occ, out | ny_pad, cap, nx_pad, tb, nb, code_bytes,
+    # fill_bits | stream
+    "bgf_apply_code": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 
@@ -142,20 +151,25 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check_planes(grid, occ=None, **planes) -> torch.device:
+def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
     """Validate a wrapper's dense planes (contiguous ``grid.plane_shape``,
-    float32 except ``idx_d`` int32, all on one CPU or CUDA device) and the
-    optional slot-loop bounds ``occ`` (int32 [3, n_row_blocks]).  Returns
-    the device; raises ValueError on anything a kernel does not take."""
-    want = {name: (torch.int32 if name == "idx_d" else torch.float32,
-                   grid.plane_shape) for name in planes}
+    float32 except ``idx_d`` int32 and what ``dtypes`` allows per name, all
+    on one CPU or CUDA device) and the optional slot-loop bounds ``occ``
+    (int32 [3, n_row_blocks]).  Returns the device; raises ValueError on
+    anything a kernel does not take."""
+    dtypes = dtypes or {}
+    want = {name: (dtypes.get(name, torch.int32 if name == "idx_d"
+                              else torch.float32), grid.plane_shape)
+            for name in planes}
     if occ is not None:
         planes["occ"] = occ
         want["occ"] = (torch.int32, (3, grid.n_row_blocks))
     dev = next(iter(planes.values())).device
     for name, t in planes.items():
         dtype, shape = want[name]
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+        ok_dtype = t.dtype in dtype if isinstance(dtype, tuple) \
+            else t.dtype == dtype
+        if (t.device != dev or not ok_dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
                 f"{name}: want contiguous {dtype} {shape} on {dev}, got "

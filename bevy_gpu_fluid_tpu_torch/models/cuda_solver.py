@@ -1,9 +1,9 @@
-"""Hand-written CUDA stencil kernels for the SPH density, the fused
-forces + integrate step and the one-launch "mono" step, with their plain
-PyTorch twins.
+"""Hand-written CUDA stencil kernels for the SPH density, the forces (fused
+with the integrate step, or alone) and the one-launch "mono" step, with
+their plain PyTorch twins; and the eager solver that steps on K1 + K8.
 
 Port of ``bevy_gpu_fluid_tpu/models/pallas_solver.py`` (the TPU Pallas
-kernels), for the Verlet flagship's step:
+kernels and its eager ``step``/``multi_step``):
 
 * K1 ``density_cuda`` (``csrc/density.cu``) replaces ``_density_kernel`` /
   ``density_pallas`` (pallas_solver.py:224, :854);
@@ -13,7 +13,12 @@ kernels), for the Verlet flagship's step:
 * K5 ``mono_step_cuda`` (``csrc/mono_step.cu``) replaces
   ``_mono_step_kernel`` / ``mono_step_pallas`` (pallas_solver.py:657,
   :1044): K1 + EOS + K2 in one launch, for grids under
-  ``MONO_MAX_BLOCKS`` row blocks.
+  ``MONO_MAX_BLOCKS`` row blocks;
+* K8 ``forces_cuda`` (``csrc/forces.cu``) replaces ``_forces_kernel`` /
+  ``forces_pallas`` (pallas_solver.py:296, :930): K2's pair loop alone,
+  writing the accelerations.  ``make_stencils`` pairs K1 and K8 for the
+  eager step glue of ``models/grid_solver.py`` (``step``, ``multi_step``
+  here), the validator and the Session's unfused step.
 
 The dense plane is float32 ``[ny_pad, cap, nx_pad]`` (ops/binning.py).
 The kernels loop over the 3x3 neighbour cells x ``kmax`` slots in
@@ -43,7 +48,8 @@ from ..core.params import FluidParams, GRAVITY_Y, GridSpec2D, IntegrateConfig
 from ..kernels import _build
 from ..ops.binning import FAR
 from ..ops.kernels import PI
-from ..ops.reslot import taps
+from ..ops.reslot import block_kmax3, row_kmax, taps
+from . import grid_solver
 
 _f32 = np.float32
 EPS2 = _f32(1e-6 * 1e-6)   # softening of the force gate, EPS^2
@@ -71,17 +77,6 @@ def _forces_consts(params: FluidParams) -> dict:
     return dict(h=h, m_half=-params.m * _f32(0.5),
                 spiky_c=_f32(-10.0) / (PI * h5),
                 visc_mc=params.mu * params.m * visc_c)
-
-
-def _row_kmax(occ: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
-    """Slot-loop bound per row, [ny_pad, 1, 1]: the row block's max over
-    the three row shifts, 0 on the ghost blocks (which the kernels never
-    compute)."""
-    tb = grid.row_block
-    km = torch.zeros(grid.ny_pad, dtype=torch.int64, device=occ.device)
-    km[tb:tb + grid.n_row_blocks * tb] = \
-        occ.amax(dim=0).to(torch.int64).repeat_interleave(tb)
-    return km[:, None, None]
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +133,7 @@ def _force_sum(xi, yi, vxi, vyi, p_i, params: FluidParams, bound, tap_fn,
     return ax, ay
 
 
-def _integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig):
+def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig):
     """Semi-implicit Euler + gravity + bounce box, masked to live slots
     (x < 1e8), and the max squared displacement of the live slots from the
     rebin reference.  Returns (x, y, vx, vy, disp2)."""
@@ -177,7 +172,7 @@ def density_torch(xd, yd, params: FluidParams, grid: GridSpec2D,
     """Plain PyTorch twin of kernel K1: rho = coeff * sum max(h^2 - r^2,
     0)^3 in (kj, dx, dy) order; ghost blocks 0."""
     h2, coeff = _density_consts(params)
-    kmax = _row_kmax(occ, grid)
+    kmax = row_kmax(occ, grid)
     rho = density_sum(xd, yd, h2, kmax, lambda kj: taps((xd, yd), kj),
                       int(kmax.max()))
     return rho * float(coeff)
@@ -213,12 +208,12 @@ def forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
     """Plain PyTorch twin of kernel K2.  Returns (xd', yd', vxd', vyd',
     disp2) with disp2 a float32 0-dim tensor."""
     p, ir = _eos(rho_d, params)
-    kmax = _row_kmax(occ, grid)
+    kmax = row_kmax(occ, grid)
     ax, ay = _force_sum(xd, yd, vxd, vyd, p, params, kmax,
                         lambda kj: taps((xd, yd, vxd, vyd, p, ir), kj),
                         int(kmax.max()))
-    x, y, vx, vy, disp2 = _integrate(xd, yd, vxd, vyd, ax, ay, ref_xd, ref_yd,
-                                     cfg)
+    x, y, vx, vy, disp2 = integrate(xd, yd, vxd, vyd, ax, ay, ref_xd, ref_yd,
+                                    cfg)
     tb = grid.row_block
     for plane, fill in ((x, FAR), (y, FAR), (vx, 0.0), (vy, 0.0)):
         plane[:tb] = fill
@@ -331,7 +326,7 @@ def mono_step_torch(xd, yd, vxd, vyd, ref_xd, ref_yd, params: FluidParams,
         lambda kj: _window_taps(((xw, 2), (yw, 2), (vxw, 1), (vyw, 1),
                                  (p, 1), (ir, 1)), kj, tb),
         int(kmax_f.max()))
-    x, y, vx, vy, disp2 = _integrate(
+    x, y, vx, vy, disp2 = integrate(
         xi, yi, vxi, vyi, ax, ay, _row_windows(ref_xd, grid, 0, tb),
         _row_windows(ref_yd, grid, 0, tb), cfg)
 
@@ -372,3 +367,86 @@ def mono_step_cuda(xd, yd, vxd, vyd, ref_xd, ref_yd, params: FluidParams,
 
 
 mono_step_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: forces alone (pressure + viscosity accelerations)
+# ---------------------------------------------------------------------------
+
+def forces_torch(xd, yd, vxd, vyd, rho_d, params: FluidParams,
+                 grid: GridSpec2D, occ):
+    """Plain PyTorch twin of kernel K8: K2's pair sum (``_eos``,
+    ``_force_sum``, the same per-row bound) without the integrate.  Returns
+    (ax_d, ay_d); ghost blocks 0."""
+    p, ir = _eos(rho_d, params)
+    kmax = row_kmax(occ, grid)
+    return _force_sum(xd, yd, vxd, vyd, p, params, kmax,
+                      lambda kj: taps((xd, yd, vxd, vyd, p, ir), kj),
+                      int(kmax.max()))
+
+
+def forces_cuda(xd, yd, vxd, vyd, rho_d, params: FluidParams,
+                grid: GridSpec2D, occ):
+    """Pressure + viscosity accelerations over the dense grid (kernel K8),
+    EOS and 1/rho derived in the kernel; no gravity.  ``occ`` bounds the
+    slot loops (``block_kmax3`` of the planes).  Returns (ax_d, ay_d); the
+    ghost blocks, which the TPU kernel leaves unwritten, hold 0."""
+    dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
+                              rho_d=rho_d)
+    if dev.type == "cpu":
+        return forces_torch(xd, yd, vxd, vyd, rho_d, params, grid, occ)
+    c = _forces_consts(params)
+    ax = torch.empty_like(xd)
+    ay = torch.empty_like(xd)
+    _build.launch(
+        "bgf_forces", dev, xd.data_ptr(), yd.data_ptr(), vxd.data_ptr(),
+        vyd.data_ptr(), rho_d.data_ptr(), occ.data_ptr(), ax.data_ptr(),
+        ay.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad, grid.row_block,
+        grid.n_row_blocks,
+        *(float(c[k]) for k in ("h", "m_half", "spiky_c", "visc_mc")),
+        float(params.rho_0), float(params.k))
+    forces_cuda.launches += 1
+    return ax, ay
+
+
+forces_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The eager solver: sort-based binning every step, K1 + K8
+# ---------------------------------------------------------------------------
+
+def make_stencils(grid: GridSpec2D):
+    """(density_fn, forces_fn) on K1 and K8, pluggable into
+    ``grid_solver``'s step glue and ``verlet_solver``'s unfused step.  Both
+    take an optional ``occ=`` (``block_kmax3`` bounds) and compute it from
+    the planes when none is given."""
+    def density_fn(xd, yd, params, occ=None):
+        if occ is None:
+            occ = block_kmax3(xd, grid)
+        return density_cuda(xd, yd, params, grid, occ)
+
+    def forces_fn(xd, yd, vxd, vyd, rho_d, params, occ=None):
+        if occ is None:
+            occ = block_kmax3(xd, grid)
+        return forces_cuda(xd, yd, vxd, vyd, rho_d, params, grid, occ)
+    return density_fn, forces_fn
+
+
+def step_with_diag(state, params: FluidParams, cfg: IntegrateConfig,
+                   grid: GridSpec2D):
+    """One eager step on K1 + K8 (re-binned by sort), with its StepDiag."""
+    return grid_solver.step_with_diag(state, params, cfg, grid,
+                                      stencils=make_stencils(grid))
+
+
+def step(state, params: FluidParams, cfg: IntegrateConfig, grid: GridSpec2D):
+    return step_with_diag(state, params, cfg, grid)[0]
+
+
+def multi_step(state, params: FluidParams, cfg: IntegrateConfig,
+               grid: GridSpec2D, n_steps: int):
+    """n_steps eager steps on K1 + K8; returns (state, StepDiag) with the
+    largest per-step overflow."""
+    return grid_solver.multi_step(state, params, cfg, grid, n_steps,
+                                  stencils=make_stencils(grid))

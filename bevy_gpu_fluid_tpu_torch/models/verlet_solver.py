@@ -19,9 +19,15 @@ later rebin once their cell has room and they satisfy the skin invariant
 |v| dt <= skin_half.  ``lost`` counts particles missed by the +-1 reslot
 window, impossible while the skin invariant holds.
 
-The port covers the fused, ref-based, non-planar posture of the reference,
-with the mono kernel on small grids.  The step loop is a Python
-loop, where the reference runs one ``lax.scan`` with a ``lax.cond`` rebin:
+The port covers the ref-based postures of the reference: the fused step
+(K1 + K2, or K5 on small grids) by default; the unfused step with explicit
+``stencils`` (density, then forces, e.g. K1 + K8 from
+``cuda_solver.make_stencils``, then Euler, bounce and the trigger as torch
+ops); and the PLANAR rebin (``planar=True`` / ``planar_rebin=True``),
+which splits K3 into one routing pass (K6) and five plane copies (K7) to
+lower the rebin's peak memory, with bitwise the same result.  The step
+loop is a Python loop, where the reference runs one ``lax.scan`` with a
+``lax.cond`` rebin:
 the rebin decision reads ``disp2`` on the host, one device sync per step
 (the step counters ``age``, ``step`` and ``rebin_count`` are host ints, so
 ``disp2`` is the only value read back).  Whether a CUDA graph over several
@@ -176,34 +182,33 @@ def _skin(params: FluidParams, grid: GridSpec2D) -> np.float32:
     return (np.float32(grid.cell_size) - params.h) * np.float32(0.5)
 
 
-def _spill_recover(ops, *, grid: GridSpec2D, vmax2: np.float32):
-    """Overflow recovery at a rebin: COLLECT every particle the reslot just
-    dropped (present in the pre-rebin idx planes, absent from the 3x3 cell
-    window of its pre-rebin slot in the post planes) into the spill buffer,
-    then RE-ADMIT spill entries into cells with free capacity."""
-    (xd, yd, vxd, vyd, idx_d, cnt,
-     pxd, pyd, pvxd, pvyd, pidx_d,
-     sx, sy, svx, svy, sidx, readmitted) = ops
+_FILLS = reslot_ops.PLANE_FILLS   # empty x, y, vx, vy, idx slots
+
+
+def _found_in_window(pidx_d: torch.Tensor, idx_d: torch.Tensor):
+    """Per pre-rebin slot: is its particle index present in the 3x3 cell
+    window of its slot in the post-rebin idx plane?  (The fused rebin's
+    drop test: a live pre-rebin slot not found was dropped.)"""
     R, _, C = pidx_d.shape
     padded = F.pad(idx_d, (1, 1, 0, 0, 1, 1), value=-1)
-    found = torch.zeros(pidx_d.shape, dtype=torch.bool, device=xd.device)
+    found = torch.zeros(pidx_d.shape, dtype=torch.bool, device=idx_d.device)
     for s in range(9):
         win = padded[s // 3:s // 3 + R, :, s % 3:s % 3 + C]
         found |= (pidx_d[:, :, None, :] == win[:, None, :, :]).any(dim=2)
-    pre = pidx_d.reshape(-1)
-    total = pre.numel()
-    dpos = _first_k((pre >= 0) & ~found.reshape(-1), sx.shape[0])
+    return found
+
+
+def _spill_collect(dropped: torch.Tensor, planes, spill):
+    """Overflow recovery's COLLECT: the first spill-capacity slots flagged
+    in ``dropped`` (flat C order), read from the pre-rebin planes (x, y,
+    vx, vy, idx), merged into the spill buffer (x, y, vx, vy, idx)."""
+    total = dropped.numel()
+    dpos = _first_k(dropped, spill[0].shape[0])
     dv = dpos < total
     dsf = torch.clamp_max(dpos, total - 1)
-    drops = (torch.where(dv, pxd.reshape(-1)[dsf], FAR),
-             torch.where(dv, pyd.reshape(-1)[dsf], FAR),
-             torch.where(dv, pvxd.reshape(-1)[dsf], 0.0),
-             torch.where(dv, pvyd.reshape(-1)[dsf], 0.0),
-             torch.where(dv, pre[dsf], -1))
-    sx, sy, svx, svy, sidx = _spill_merge((sx, sy, svx, svy, sidx), drops)
-    return _spill_admit(xd, yd, vxd, vyd, idx_d, cnt,
-                        sx, sy, svx, svy, sidx, readmitted,
-                        grid=grid, vmax2=vmax2)
+    return _spill_merge(spill, tuple(
+        torch.where(dv, p.reshape(-1)[dsf], fill)
+        for p, fill in zip(planes, _FILLS)))
 
 
 def _spill_merge(spill, drops):
@@ -253,37 +258,67 @@ def _spill_admit(xd, yd, vxd, vyd, idx_d, cnt,
 
 def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                     grid: GridSpec2D, max_age: int = 64,
-                    n: int | None = None):
+                    n: int | None = None, *, stencils=None,
+                    planar: bool = False, code_dtype=torch.int32):
     """The dense step as ``(pure_step, rebin, need)``: ``need(sim)`` is the
     rebin trigger (a host bool), ``rebin(sim)`` the local reslot with
-    recovery, ``pure_step(sim)`` the step's kernels (K5 on grids under
-    ``MONO_MAX_BLOCKS`` row blocks, else K1 + K2).  ``n`` (the particle
+    recovery, ``pure_step(sim)`` the step's kernels.  ``n`` (the particle
     count) arms overflow recovery; with ``n=None`` drops are counted but
     the spill buffer is never refilled or drained.  Requires
-    ``grid.cell_size > params.h`` (a real skin)."""
+    ``grid.cell_size > params.h`` (a real skin).
+
+    ``stencils=None`` (the default) steps on the fused kernels: K5 on grids
+    under ``MONO_MAX_BLOCKS`` row blocks, else K1 + K2.  An explicit
+    ``(density_fn, forces_fn)`` pair (``cuda_solver.make_stencils(grid)``
+    for K1 + K8, or ``grid_solver.XLA_STENCILS``) takes the unfused step:
+    density, forces, then Euler, bounce and the displacement trigger as
+    torch ops on the planes.
+
+    ``planar=True`` rebins plane at a time: K6 writes a routing code plane
+    (int32, or int8 with ``code_dtype=torch.int8``), the drops are read off
+    it (``taken_mask``), then K7 routes the five payload planes one by one.
+    Same slot assignment, counters and recovery as the fused rebin, bit for
+    bit.  The rebin TAKES the planes of the DenseSim it is given (its x,
+    y, vx, vy, idx and reference fields are left None) and frees each
+    input plane once its copy is made, so its peak holds about one payload
+    plane and the code beyond the resident set, where the fused rebin
+    holds five new planes beside the old ones.  If the rebin fails before
+    any input plane was consumed, the DenseSim gets its planes back (its
+    references set to them: the rebin is still due); after that it cannot
+    be restored, and the error says so."""
+    reslot_ops.check_code_dtype(code_dtype, grid.cap)
     reslot = reslot_ops.make_reslot(grid)
     skin_half = _skin(params, grid)
     skin2 = float(skin_half * skin_half)
     q = skin_half / cfg.dt
     vmax2 = q * q
-    mono = grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+    fused = stencils is None
+    mono = fused and grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+    if not fused:
+        density_fn, forces_fn = stencils
 
-    def rebin(sim: DenseSim) -> DenseSim:
-        xd, yd, vxd, vyd, idx_d, cnt = reslot(
-            sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d)
+    def host_counts(xd, cnt, sidx):
+        """(alive_before, matched, captured) and whether recovery runs (a
+        particle lost its slot, or the spill buffer holds one): one sync."""
         alive_before, matched, captured, spilled = torch.stack([
-            (sim.xd < FAR * 0.5).sum(), cnt.sum(),
+            (xd < FAR * 0.5).sum(), cnt.sum(),
             torch.clamp_max(cnt, grid.cap).sum(),
-            (sim.sidx >= 0).any().long()]).tolist()
-        sx, sy, svx, svy = sim.sx, sim.sy, sim.svx, sim.svy
-        sidx, readmitted = sim.sidx, sim.readmitted
-        if n is not None and (alive_before - captured > 0 or spilled):
-            (xd, yd, vxd, vyd, idx_d, sx, sy, svx, svy, sidx,
-             readmitted) = _spill_recover(
-                (xd, yd, vxd, vyd, idx_d, cnt,
-                 sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d,
-                 sx, sy, svx, svy, sidx, readmitted),
-                grid=grid, vmax2=vmax2)
+            (sidx >= 0).any().long()]).tolist()
+        return ((alive_before, matched, captured),
+                n is not None and (alive_before - captured > 0 or spilled))
+
+    def rebinned(sim: DenseSim, planes, cnt, stats, spill,
+                 recover: bool) -> DenseSim:
+        """The DenseSim after a rebin: recovery's RE-ADMIT into the new
+        planes, fresh references and bounds, the counters advanced."""
+        alive_before, matched, captured = stats
+        readmitted = sim.readmitted
+        if recover:
+            out = _spill_admit(*planes, cnt, *spill, readmitted, grid=grid,
+                               vmax2=vmax2)
+            planes, spill, readmitted = out[:5], out[5:10], out[10]
+        xd, yd, vxd, vyd, idx_d = planes
+        sx, sy, svx, svy, sidx = spill
         return DenseSim(xd=xd, yd=yd, vxd=vxd, vyd=vyd, rho_d=sim.rho_d,
                         ref_xd=xd, ref_yd=yd, idx_d=idx_d,
                         occ=reslot_ops.block_kmax3(xd, grid),
@@ -293,6 +328,47 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                         lost=sim.lost + alive_before - matched,
                         rebin_count=sim.rebin_count + 1, step=sim.step,
                         readmitted=readmitted)
+
+    def rebin(sim: DenseSim) -> DenseSim:
+        old = (sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d)
+        *planes, cnt = reslot(*old)
+        stats, recover = host_counts(sim.xd, cnt, sim.sidx)
+        spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
+        if recover:
+            dropped = (sim.idx_d >= 0) & ~_found_in_window(sim.idx_d,
+                                                          planes[4])
+            spill = _spill_collect(dropped, old, spill)
+        return rebinned(sim, planes, cnt, stats, spill, recover)
+
+    def rebin_planar(sim: DenseSim) -> DenseSim:
+        old = [sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d]
+        # the rebin owns the planes: with no reference left in ``sim``, the
+        # reference planes die now and each old plane once its copy exists
+        sim.xd = sim.yd = sim.vxd = sim.vyd = sim.idx_d = None
+        sim.ref_xd = sim.ref_yd = None
+        try:
+            code, cnt = reslot_ops.select_cuda(old[0], old[1], grid, sim.occ,
+                                               code_dtype)
+            stats, recover = host_counts(old[0], cnt, sim.sidx)
+            spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
+            if recover:     # collect before the applies free the old planes
+                dropped = ((old[4] >= 0)
+                           & ~reslot_ops.taken_mask(code, grid.cap))
+                spill = _spill_collect(dropped, old, spill)
+                del dropped
+            planes = reslot_ops.apply_planes(old, code, sim.occ, grid)
+        except BaseException as exc:
+            if any(p is None for p in old):
+                raise RuntimeError(
+                    "planar rebin failed after consuming input planes; the "
+                    "DenseSim is lost (Session.reset restarts it)") from exc
+            # nothing consumed: hand the planes back.  The rebin is still
+            # due, so the next step rebins before it reads the references.
+            sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d = old
+            sim.ref_xd, sim.ref_yd = old[0], old[1]
+            raise
+        del code
+        return rebinned(sim, planes, cnt, stats, spill, recover)
 
     def need(sim: DenseSim) -> bool:
         """Rebin before this step's kernels: a particle outran half the
@@ -305,24 +381,34 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
             xd, yd, vxd, vyd, rho_d, disp2 = cuda_solver.mono_step_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, sim.ref_xd, sim.ref_yd,
                 params, cfg, grid, sim.occ)
-        else:
+        elif fused:
             rho_d = cuda_solver.density_cuda(sim.xd, sim.yd, params, grid,
                                              sim.occ)
             xd, yd, vxd, vyd, disp2 = cuda_solver.forces_integrate_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd,
                 sim.ref_yd, params, cfg, grid, sim.occ)
+        else:
+            rho_d = density_fn(sim.xd, sim.yd, params, occ=sim.occ)
+            ax, ay = forces_fn(sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d,
+                               params, occ=sim.occ)
+            xd, yd, vxd, vyd, disp2 = cuda_solver.integrate(
+                sim.xd, sim.yd, sim.vxd, sim.vyd, ax, ay, sim.ref_xd,
+                sim.ref_yd, cfg)
         return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                                    rho_d=rho_d, disp2=disp2,
                                    age=sim.age + 1, step=sim.step + 1)
 
-    return pure_step, rebin, need
+    return pure_step, (rebin_planar if planar else rebin), need
 
 
 def make_step(params: FluidParams, cfg: IntegrateConfig, grid: GridSpec2D,
-              max_age: int = 64, n: int | None = None):
+              max_age: int = 64, n: int | None = None, *, stencils=None,
+              planar: bool = False, code_dtype=torch.int32):
     """The dense step fn DenseSim -> DenseSim: rebin if needed, then the
-    step's kernels (see ``make_step_parts``)."""
-    pure_step, rebin, need = make_step_parts(params, cfg, grid, max_age, n)
+    step's kernels (see ``make_step_parts`` for the options)."""
+    pure_step, rebin, need = make_step_parts(
+        params, cfg, grid, max_age, n, stencils=stencils, planar=planar,
+        code_dtype=code_dtype)
 
     def step(sim: DenseSim) -> DenseSim:
         if need(sim):
@@ -369,19 +455,32 @@ class Session:
 
     def __init__(self, state: FluidState, params: FluidParams,
                  cfg: IntegrateConfig, grid: GridSpec2D, *, device="cuda",
-                 max_age: int = 64, spill_cap: int = SPILL_CAP,
-                 recovery: bool = True):
+                 stencils=None, max_age: int = 64,
+                 spill_cap: int = SPILL_CAP, recovery: bool = True,
+                 planar_rebin: bool = False, code_dtype=torch.int32):
         """``recovery=False`` reverts overflow handling to the counted-loss
-        contract: drops are counted, never collected or re-admitted."""
+        contract: drops are counted, never collected or re-admitted.
+        ``stencils`` (e.g. ``cuda_solver.make_stencils(grid)``, K1 + K8)
+        selects the unfused step; ``planar_rebin=True`` the plane-at-a-time
+        rebin (K6 + K7, bitwise the fused rebin's result, lower peak
+        memory); ``code_dtype`` its code plane's type.  See
+        ``make_step_parts``.  A planar Session's next rebin consumes its
+        ``sim``: a DenseSim read from ``self.sim`` loses its planes then,
+        so copy the tensors to keep a snapshot.  The planar rebin stays
+        off by default: the
+        reference switches it on by a memory threshold of a 16 GiB TPU,
+        and the H100's threshold is not measured yet."""
         self.params = params
         self.cfg = cfg
         self.grid = grid
         self.n = state.n
         self.device = torch.device(device)
+        self.planar_rebin = planar_rebin
         self._spill_cap = spill_cap
         self._recovery = recovery
         self._pure_step, self._rebin, self._need = make_step_parts(
-            params, cfg, grid, max_age, n=self.n if recovery else None)
+            params, cfg, grid, max_age, n=self.n if recovery else None,
+            stencils=stencils, planar=planar_rebin, code_dtype=code_dtype)
         self.reset(state)
 
     def reset(self, state: FluidState) -> None:

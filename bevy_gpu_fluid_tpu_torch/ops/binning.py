@@ -93,6 +93,19 @@ def to_dense(binned: Binned, field: torch.Tensor, fill) -> torch.Tensor:
     return out
 
 
+def from_dense(binned: Binned, dense: torch.Tensor,
+               fallback: float = 0.0) -> torch.Tensor:
+    """Per-particle values (ORIGINAL order) of a dense [ny_pad, cap,
+    nx_pad] field; overflowed particles (rank >= cap) get ``fallback``."""
+    return from_dense_multi(binned, [dense], [fallback])[0]
+
+
+def from_dense_multi(binned: Binned, denses, fallbacks):
+    """``from_dense`` of several dense fields at the binning's slots."""
+    return gather_slots(binned.grid, binned.cx, binned.cy, binned.rank,
+                        denses, fallbacks)
+
+
 def gather_slots(grid: GridSpec2D, cx, cy, rank, denses, fallbacks):
     """Per-particle values of several dense fields at raw slot coordinates;
     particles without a slot (rank >= cap) get their field's fallback."""

@@ -14,6 +14,27 @@ plane (-1 = empty).
 replaces the TPU kernel ``_reslot_kernel`` (reslot.py:203).
 ``reslot_torch`` is its plain PyTorch twin, written in the form of the
 reference's ``reslot_xla``; the two agree bit for bit.
+
+The PLANAR rebin (``reslot_planar``, the reference's reslot.py:346-644)
+splits the same rebin in two phases so that it never holds all five input
+and five output planes at once:
+
+1. SELECT, kernel K6 (``select_cuda``, ``csrc/select.cu``; replaces
+   ``_select_kernel``, reslot.py:393): K3's candidate scan over x/y alone,
+   writing a routing CODE per target slot, ``kj*9 + (dx+1)*3 + (dy+1)``
+   for the candidate (kj, dx, dy) that lands there, -1 for an empty slot,
+   plus the per-cell match counts.  The code plane is int32 or int8
+   (``code_dtype``, an argument here where the reference reads an
+   environment variable).
+2. APPLY, kernel K7 (``apply_code_cuda``, ``csrc/apply_code.cu``; replaces
+   ``_apply_kernel``, reslot.py:504), once per payload plane: the plane
+   routed through the code.  ``apply_planes`` runs the five applies and
+   drops each input plane after its apply, so one input and one output
+   are alive at a time.
+
+The slot assignment is K3's bit for bit (the two kernels share one scan,
+``bgf::scan_candidates``).  ``taken_mask`` reads the drops of a rebin off
+the code plane alone.
 """
 
 from __future__ import annotations
@@ -48,6 +69,17 @@ def block_kmax3(xd: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
                         wmax[starts + 1]]).contiguous()
 
 
+def row_kmax(occ: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
+    """Slot-loop bound per row, int64 [ny_pad, 1, 1]: the row block's max
+    over the three row shifts of ``occ``, 0 on the ghost blocks (which the
+    kernels never compute)."""
+    tb = grid.row_block
+    km = torch.zeros(grid.ny_pad, dtype=torch.int64, device=occ.device)
+    km[tb:tb + grid.n_row_blocks * tb] = \
+        occ.amax(dim=0).to(torch.int64).repeat_interleave(tb)
+    return km[:, None, None]
+
+
 def _cell_of(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D, live):
     """Clipped cell coords of candidate positions, -9 for dead slots (the
     clip alone would resurrect FAR into the boundary cells)."""
@@ -71,6 +103,16 @@ def taps(planes, kj: int):
             yield [torch.roll(r, -dy, 0) for r in rolled]
 
 
+def _targets(grid: GridSpec2D, device):
+    """Target cell coords per dense position (lane l -> cx = l - 1, row r
+    -> cy = r - row0; ghosts get unreachable values) and the slot iota."""
+    tgt_cx = (torch.arange(grid.nx_pad, device=device) - 1)[None, None, :]
+    tgt_cy = (torch.arange(grid.ny_pad, device=device)
+              - grid.row0)[:, None, None]
+    kiota = torch.arange(grid.cap, device=device)[None, :, None]
+    return tgt_cx, tgt_cy, kiota
+
+
 def reslot_torch(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
     """Plain PyTorch twin of kernel K3 (the reference's ``reslot_xla``):
     rolled views, one-hot select per candidate.  Returns (xd, yd, vxd, vyd,
@@ -78,9 +120,7 @@ def reslot_torch(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
     cap = grid.cap
     shape = xd.shape
     dev = xd.device
-    tgt_cx = (torch.arange(shape[2], device=dev) - 1)[None, None, :]
-    tgt_cy = (torch.arange(shape[0], device=dev) - grid.row0)[:, None, None]
-    kiota = torch.arange(cap, device=dev)[None, :, None]
+    tgt_cx, tgt_cy, kiota = _targets(grid, dev)
     ccx, ccy = _cell_of(xd, yd, grid, xd < FAR * 0.5)
 
     out_x = torch.full(shape, FAR, dtype=torch.float32, device=dev)
@@ -137,3 +177,187 @@ def make_reslot(grid: GridSpec2D):
     def fn(xd, yd, vxd, vyd, idx_d):
         return reslot_cuda(xd, yd, vxd, vyd, idx_d, grid)
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The planar rebin: K6 (select), K7 (apply), taken_mask, reslot_planar
+# ---------------------------------------------------------------------------
+
+CODE_DTYPES = (torch.int32, torch.int8)
+_CODE_EMPTY = -1
+# Empty-slot values of the five payload planes (x, y, vx, vy, idx).
+PLANE_FILLS = (FAR, FAR, 0.0, 0.0, -1)
+
+
+def code_of(kj: int, dx: int, dy: int) -> int:
+    """Routing code of candidate (kj, dx, dy), in candidate order."""
+    return kj * 9 + (dx + 1) * 3 + (dy + 1)
+
+
+def check_code_dtype(code_dtype, cap: int) -> None:
+    """Raise ValueError unless ``code_dtype`` holds every code of a grid
+    with ``cap`` slots per cell (codes reach 9 * cap - 1: int8 takes cap
+    <= 14)."""
+    if code_dtype not in CODE_DTYPES:
+        raise ValueError(f"code_dtype must be torch.int32 or torch.int8, "
+                         f"got {code_dtype}")
+    top = code_of(cap - 1, 1, 1)
+    if top > torch.iinfo(code_dtype).max:
+        raise ValueError(f"code_dtype {code_dtype} cannot hold code {top} "
+                         f"of cap {cap}; use torch.int32")
+
+
+def select_torch(xd, yd, grid: GridSpec2D, occ=None,
+                 code_dtype=torch.int32):
+    """Plain PyTorch twin of kernel K6, in ``reslot_torch``'s form, with
+    the kernel's per-row-block slot bound from ``occ`` (the planes'
+    ``block_kmax3``, computed when not given).  Returns (code, counts):
+    code ``code_dtype`` [ny_pad, cap, nx_pad] (-1 = empty, ghost blocks
+    -1), counts int32 [ny_pad, nx_pad]."""
+    check_code_dtype(code_dtype, grid.cap)
+    if occ is None:
+        occ = block_kmax3(xd, grid)
+    tgt_cx, tgt_cy, kiota = _targets(grid, xd.device)
+    kmax = row_kmax(occ, grid)
+    ccx, ccy = _cell_of(xd, yd, grid, xd < FAR * 0.5)
+    code = torch.full(xd.shape, _CODE_EMPTY, dtype=torch.int32,
+                      device=xd.device)
+    cnt = torch.zeros((xd.shape[0], 1, xd.shape[2]), dtype=torch.int64,
+                      device=xd.device)
+    for kj in range(int(kmax.max())):
+        views = taps((ccx, ccy), kj)
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                cx, cy = next(views)
+                match = (cx == tgt_cx) & (cy == tgt_cy) & (kj < kmax)
+                code = torch.where(match & (cnt == kiota),
+                                   code_of(kj, dx, dy), code)
+                cnt = cnt + match
+    return code.to(code_dtype), cnt[:, 0, :].to(torch.int32)
+
+
+def select_cuda(xd, yd, grid: GridSpec2D, occ=None,
+                code_dtype=torch.int32):
+    """The planar rebin's routing pass; same contract as ``select_torch``.
+    CUDA tensors launch kernel K6 (``csrc/select.cu``); CPU tensors take
+    the twin.  ``occ`` (the planes' ``block_kmax3``) is computed when not
+    given."""
+    check_code_dtype(code_dtype, grid.cap)
+    if occ is None:
+        occ = block_kmax3(xd, grid)
+    dev = _build.check_planes(grid, occ, xd=xd, yd=yd)
+    if dev.type == "cpu":
+        return select_torch(xd, yd, grid, occ, code_dtype)
+    code = torch.empty(grid.plane_shape, dtype=code_dtype, device=dev)
+    cnt = torch.empty((grid.ny_pad, grid.nx_pad), dtype=torch.int32,
+                      device=dev)
+    _build.launch(
+        "bgf_select", dev, xd.data_ptr(), yd.data_ptr(), occ.data_ptr(),
+        code.data_ptr(), cnt.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad,
+        grid.row_block, grid.n_row_blocks, grid.row0, grid.nx, grid.ny,
+        code.element_size(), float(np.float32(grid.origin_x)),
+        float(np.float32(grid.origin_y)), float(inv_cell(grid)))
+    select_cuda.launches += 1
+    return code, cnt
+
+
+select_cuda.launches = 0
+
+
+def _decode(code: torch.Tensor):
+    """(c, kj, dx, dy) int64 planes of a code plane (meaningless where
+    c < 0)."""
+    c = code.to(torch.int64)
+    kj = torch.div(c, 9, rounding_mode="floor")
+    r = c - kj * 9
+    dx = torch.div(r, 3, rounding_mode="floor") - 1
+    return c, kj, dx, r - (dx + 1) * 3 - 1
+
+
+def apply_code_torch(payload, code, occ, grid: GridSpec2D, fill):
+    """Plain PyTorch twin of kernel K7: each output slot of an interior row
+    whose code names source slot (row + dy, kj, col + dx) (columns wrap
+    modulo nx_pad) with kj below its row block's bound in ``occ`` takes the
+    payload there; every other slot, and the ghost blocks, ``fill``."""
+    R, cap, C = payload.shape
+    dev = payload.device
+    c, kj, dx, dy = _decode(code)
+    ok = (c >= 0) & (kj < row_kmax(occ, grid))
+    rows = torch.arange(R, device=dev)[:, None, None]
+    cols = torch.arange(C, device=dev)[None, None, :]
+    vals = payload[torch.clamp(rows + dy, 0, R - 1),
+                   torch.clamp(kj, 0, cap - 1),
+                   torch.remainder(cols + dx, C)]
+    return torch.where(ok, vals, fill)
+
+
+def apply_code_cuda(payload, code, occ, grid: GridSpec2D, fill):
+    """Route one payload plane (float32 or int32) through a code plane
+    (int32 or int8); same contract as ``apply_code_torch``.  ``occ`` is the
+    PRE-rebin ``block_kmax3``, the one the code was selected under.
+    Returns a new plane: the kernel reads a +-1-row halo of its payload, so
+    it can never write over its input."""
+    dev = _build.check_planes(grid, occ,
+                              dtypes={"payload": (torch.float32, torch.int32),
+                                      "code": CODE_DTYPES},
+                              payload=payload, code=code)
+    if dev.type == "cpu":
+        return apply_code_torch(payload, code, occ, grid, fill)
+    bits = np.array(fill, dtype=np.float32 if payload.is_floating_point()
+                    else np.int32).view(np.int32)
+    out = torch.empty_like(payload)
+    _build.launch(
+        "bgf_apply_code", dev, payload.data_ptr(), code.data_ptr(),
+        occ.data_ptr(), out.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad,
+        grid.row_block, grid.n_row_blocks, code.element_size(), int(bits))
+    apply_code_cuda.launches += 1
+    return out
+
+
+apply_code_cuda.launches = 0
+
+
+def taken_mask(code: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per SOURCE slot, bool [ny_pad, cap, nx_pad]: did some target slot's
+    code route it?  The planar rebin's drop test, read off the code plane
+    alone, so the pre-rebin payload planes need not stay alive for it.  A
+    code whose source lies outside the plane marks nothing (the
+    reference's halo pad; select never writes such a code)."""
+    R, _, C = code.shape
+    dev = code.device
+    c, kj, dx, dy = _decode(code)
+    sr = torch.arange(R, device=dev)[:, None, None] + dy
+    sc = torch.arange(C, device=dev)[None, None, :] + dx
+    ok = (c >= 0) & (sr >= 0) & (sr < R) & (sc >= 0) & (sc < C)
+    taken = torch.zeros(code.numel(), dtype=torch.bool, device=dev)
+    taken[((sr * cap + kj) * C + sc)[ok]] = True
+    return taken.view(code.shape)
+
+
+def apply_planes(planes: list, code, occ, grid: GridSpec2D) -> list:
+    """The planar rebin's second phase: the five payload planes (x, y, vx,
+    vy, idx) routed through ``code``, one K7 each, as a new list.  TAKES
+    ``planes``: each entry is set to None once its copy exists, so a caller
+    that keeps no other reference frees each input plane after its apply
+    and holds one input and one output beyond the code at a time.  All five
+    are checked before the first apply, which leaves the list whole when a
+    plane is refused."""
+    for plane in planes:
+        _build.check_planes(grid, occ,
+                            dtypes={"payload": (torch.float32, torch.int32),
+                                    "code": CODE_DTYPES},
+                            payload=plane, code=code)
+    out = []
+    for i, fill in enumerate(PLANE_FILLS):
+        out.append(apply_code_cuda(planes[i], code, occ, grid, fill))
+        planes[i] = None
+    return out
+
+
+def reslot_planar(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D,
+                  code_dtype=torch.int32):
+    """Plane-at-a-time dense local rebin (K6, then ``apply_planes``): the
+    same contract, and the same outputs bit for bit, as ``reslot_cuda``."""
+    occ = block_kmax3(xd, grid)
+    code, cnt = select_cuda(xd, yd, grid, occ, code_dtype)
+    return (*apply_planes([xd, yd, vxd, vyd, idx_d], code, occ, grid), cnt)

@@ -34,9 +34,9 @@ import torch
 from ..core.params import FluidParams, GridSpec2D
 from ..core.state import FluidState
 from ..kernels import _build
-from ..models.cuda_solver import _density_consts, _row_kmax, density_sum
+from ..models.cuda_solver import _density_consts, density_sum
 from ..ops.kernels import w_poly6
-from ..ops.reslot import block_kmax3, taps
+from ..ops.reslot import block_kmax3, row_kmax, taps
 
 CYAN = (0.0, 1.0, 1.0)
 _f32 = np.float32
@@ -191,7 +191,7 @@ def field_density(xd, yd, params: FluidParams, grid: GridSpec2D,
     P = px_per_cell
     h2, coeff = _density_consts(params)
     px, py = _pixel_coords(grid, P, origin, xd.device)
-    kmax = _row_kmax(block_kmax3(xd, grid), grid)
+    kmax = row_kmax(block_kmax3(xd, grid), grid)
     rho = density_sum(px, py, h2, kmax, lambda kj: taps((xd, yd), kj),
                       int(kmax.max())) * float(coeff)
     ny, nx = grid.ny, grid.nx

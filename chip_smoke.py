@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from ``bevy_gpu_fluid_tpu_torch/csrc`` and
 drives its paths — the Verlet ``Session`` on the 1M-particle dam break of
-``bench.py``, its field-frame loop, and the ``bench.py --fps`` plan through
-the ``Simulation`` facade — then checks them:
+``bench.py``, its field-frame loop, the ``bench.py --fps`` plan through
+the ``Simulation`` facade, the planar-rebin Session, and the eager solver
+with the validator — then checks them:
 
 1. device and ``nvidia-smi`` name / power limit;
 2. kernel build (one nvcc per source in parallel, sm_90a), with its time;
@@ -34,7 +35,32 @@ the ``Simulation`` facade — then checks them:
    per frame and batched x32, field batched x32, each with the pump on
    the device and pulled to the host; counters zeroed first: K5 once per
    step, K1/K2 never, K4 once per field frame; overflow 0, frames not
-   black; ``run_frames(4)`` bitwise equal to 4 ``run_frame`` calls; FPS.
+   black; ``run_frames(4)`` bitwise equal to 4 ``run_frame`` calls; FPS;
+10. K8 (forces alone) on phase 3's 1M planes against its twin, and K1 ->
+    K8 -> torch integrate against K2; then the unfused 1M Session
+    (``stencils=make_stencils``), counters zeroed first: K1 and K8 once
+    per step, K3 once per rebin, K2 never; per particle against a fused
+    Session from the same state;
+11. K6 (select) and K7 (apply) on 1M planes taken after phase 4 at a step
+    where the rebin trigger fires: against their twins bitwise, int32 and
+    int8 codes, float32 and int32 payloads; ``reslot_planar`` against K3
+    bitwise; timed, with their bounds, and the planar rebin's kernels
+    (K6 + 5 x K7) against K3's;
+12. the planar Session at 1M: a fused and a planar Session from the same
+    state, 300 + 600 steps in turns, counters zeroed before each run;
+    every DenseSim field bitwise equal at the end, K6 once and K7 five
+    times per rebin, K3 never on the planar Session; ms/step for both; the
+    peak device memory across one rebin (fused vs planar, planar lower);
+    the recovery scene of phase 5 planar, bitwise the fused run;
+13. the eager solver (K1 + K8, a sort-based binning every step) at 1M on
+    bench.py's pallas grid: 100 steps of warm-up, 200 timed, counters
+    zeroed first (K1 and K8 once per step, K2/K3/K5 never); ms/step; K8
+    against its twin on the planes the next eager step gives it, timed,
+    with its bound (the kernel table's K8 row: launches, time and bound
+    all from this path); then
+    ``Simulation(solver="pallas" | "xla")`` on the 5,041-particle scene
+    (frames, golden parity at phase 6's bars) and ``validate_every=16``
+    on the verlet solver (64 steps) with ``validate(mode="fields")``.
 
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -43,6 +69,7 @@ Without a CUDA device the script fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -75,6 +102,10 @@ F32_OPS_PER_MS = 67e12 / 1e3
 DENSITY_OPS = 10   # 2 differences, r^2 (3), h^2 - r^2, max, d^3 (2), sum
 FORCE_OPS = 29     # K2's pair terms, with p and 1/rho taken once per slot
 RESLOT_OPS = 13    # live test, two clipped cell coordinates (5 each), match
+UNFUSED_STEPS = 100   # the unfused 1M Session against the fused one
+EAGER_WARM = 100   # eager 1M solver: warm-up steps, then timed steps
+EAGER_STEPS = 200
+VALIDATE_EVERY = 16
 
 
 def check(cond: bool, what: str) -> None:
@@ -157,18 +188,37 @@ def live_taps(xd, per_block, grid) -> float:
     return 9.0 * float((live * row_bounds(per_block, grid)).sum())
 
 
+def bound_k8(xd, occ, grid) -> dict:
+    """K8's bound on these planes: five planes read and two written, plus
+    occ; K2's force taps of the live slots and ~3 operations of EOS per
+    live slot."""
+    taps = live_taps(xd, occ.amax(dim=0), grid)
+    return bound(7 * 4.0 * xd.numel() + 4.0 * occ.numel(),
+                 taps * FORCE_OPS + float((xd < 5e8).sum()) * 3)
+
+
+def sims_equal(a, b) -> bool:
+    """Every field of two DenseSims equal: tensors bitwise, counters."""
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in ((getattr(a, f.name), getattr(b, f.name))
+                            for f in dataclasses.fields(a)))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False); this script runs only on the GPU")
     import bevy_gpu_fluid_tpu_torch as bt
     from bevy_gpu_fluid_tpu_torch.kernels import _build
-    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver, grid_solver
     from bevy_gpu_fluid_tpu_torch.models import reference as golden
     from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
     from bevy_gpu_fluid_tpu_torch.ops import reslot
+    from bevy_gpu_fluid_tpu_torch.ops.binning import (FAR, bin_particles,
+                                                      to_dense)
     from bevy_gpu_fluid_tpu_torch.render import raster
     from bevy_gpu_fluid_tpu_torch.render.pump import FramePump
+    from bevy_gpu_fluid_tpu_torch.utils import validator
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -205,7 +255,7 @@ def main() -> None:
     print(f"# phase 3: {sess.n} particles, grid {grid.plane_shape}, "
           f"init + {WARM_STEPS} steps {time.perf_counter() - t0:.2f} s, "
           f"rebins {sess.sim.rebin_count - 1}", flush=True)
-    s = sess.sim
+    s = warm = sess.sim       # phase 10 reads these planes again
     live = s.xd < 5e8
     plane_b = 4.0 * s.xd.numel()
     occ_b = 4.0 * s.occ.numel()
@@ -282,7 +332,10 @@ def main() -> None:
                 "forces_integrate": cuda_solver.forces_integrate_cuda,
                 "reslot": reslot.reslot_cuda,
                 "field_raster": raster.field_density_cuda,
-                "mono_step": cuda_solver.mono_step_cuda}
+                "mono_step": cuda_solver.mono_step_cuda,
+                "forces": cuda_solver.forces_cuda,
+                "select": reslot.select_cuda,
+                "apply_code": reslot.apply_code_cuda}
 
     def zero_counts():
         for w in wrappers.values():
@@ -336,6 +389,12 @@ def main() -> None:
     out = sess.state()
     check(bool(torch.isfinite(out.x).all() & (out.x < 5e8).all()),
           "extracted state not finite")
+    # step on to where the rebin trigger fires: phase 11's planes
+    to_need = 0
+    while not sess._need(sess.sim):
+        sess.sim = sess._pure_step(sess.sim)
+        to_need += 1
+    need_sim = sess.sim
     del s, sim, out, planes, fargs
 
     # ---- phase 5: overflow recovery --------------------------------------
@@ -357,6 +416,8 @@ def main() -> None:
           "recovery scene: ids are not exactly {0..n-1}")
     check(counts()["mono_step"] == 60 and counts()["density"] == 0,
           f"recovery scene (7 row blocks) did not step on K5: {counts()}")
+
+    fused_recovery = rsess.sim
 
     # ---- phase 6: parity with the golden model ---------------------------
     pstate, pparams = bt.demo_block_5k(dev)
@@ -606,6 +667,384 @@ def main() -> None:
     print(f"#   run_frames(4) vs 4 x run_frame, {FPS_PLAN[-1]} particles: "
           f"state planes and field frames bitwise equal: {same}", flush=True)
     check(same, "run_frames(4) differs from 4 sequential run_frame calls")
+
+    # ---- phase 10: K8 on phase 3's 1M planes; the unfused Session ---------
+    s = warm
+    rho = cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ)
+    f8 = (s.xd, s.yd, s.vxd, s.vyd, rho, params, grid, s.occ)
+    k8 = lambda: cuda_solver.forces_cuda(*f8)
+    t8 = lambda: cuda_solver.forces_torch(*f8)
+    got, want = k8(), t8()
+    a_scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    a_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tb = grid.row_block
+    ghost0 = all(bool((a[:tb] == 0).all() & (a[-tb:] == 0).all())
+                 for a in got)
+    unfused = cuda_solver.integrate(s.xd, s.yd, s.vxd, s.vyd, *got, s.ref_xd,
+                                    s.ref_yd, cfg)
+    fused = cuda_solver.forces_integrate_cuda(
+        s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd, params, cfg, grid,
+        s.occ)
+    u_pos = max(float((a - b).abs().max())
+                for a, b in zip(unfused[:2], fused[:2]))
+    vscale = float(torch.maximum(fused[2].abs().max(), fused[3].abs().max()))
+    u_vel = max(float((a - b).abs().max())
+                for a, b in zip(unfused[2:4], fused[2:4]))
+    u_d = abs(float(unfused[4]) - float(fused[4]))
+    print(f"# phase 10: K8 forces on the 1M planes: max |da| {a_err:.3e} of "
+          f"max |a| {a_scale:.1f} (<= 1e-5 rel), ghost blocks 0: {ghost0}; "
+          f"K1 -> K8 -> torch integrate vs K2: |dx| {u_pos:.3e} (<= 1e-5), "
+          f"|dv| {u_vel:.3e} of max|v| {vscale:.3f} (<= 1e-4 rel), disp2 "
+          f"{float(unfused[4]):.6e} vs {float(fused[4]):.6e}", flush=True)
+    check(a_err <= 1e-5 * a_scale and ghost0, f"K8 forces err {a_err}")
+    check(u_pos <= 1e-5 and u_vel <= 1e-4 * vscale
+          and u_d <= 1e-4 * float(fused[4]),
+          f"K1+K8+integrate vs K2: {u_pos} {u_vel} {u_d}")
+    k8_session = bound_k8(s.xd, s.occ, grid)
+    print(f"#   forces on the Session's planes: kernel "
+          f"{kernel_ms(k8, 'forces_kernel', 50):.4f} ms (profiler), bound "
+          f"{k8_session['bound_ms']:.4f} ms by {k8_session['bound_by']} at "
+          f"{grid.plane_shape} on {card} (the table's K8 row is phase 13's)",
+          flush=True)
+    del warm, s, rho, f8, got, want, unfused, fused
+    # the unfused Session posture (K1 + K8 + torch integrate) against the
+    # fused one, from the same 1M state
+    us = vs.Session(state, params, cfg, grid, device=dev,
+                    stencils=cuda_solver.make_stencils(grid))
+    fs10 = vs.Session(state, params, cfg, grid, device=dev)
+    zero_counts()
+    r0 = us.sim.rebin_count
+    torch.cuda.synchronize()
+    start.record()
+    us.run(UNFUSED_STEPS)
+    end.record()
+    end.synchronize()
+    u_ms = start.elapsed_time(end) / UNFUSED_STEPS
+    launches = counts()
+    u_rebins = us.sim.rebin_count - r0
+    fs10.run(UNFUSED_STEPS)
+    ua, fa = us.state(), fs10.state()
+    u_dx = max(float((ua.x - fa.x).abs().max()),
+               float((ua.y - fa.y).abs().max()))
+    vscale = float(torch.maximum(fa.vx.abs().max(), fa.vy.abs().max()))
+    u_dv = max(float((ua.vx - fa.vx).abs().max()),
+               float((ua.vy - fa.vy).abs().max()))
+    print(f"#   unfused 1M Session (stencils=make_stencils), "
+          f"{UNFUSED_STEPS} steps: {u_ms:.4f} ms/step (CUDA events) on "
+          f"{card}; rebins {u_rebins} / {fs10.sim.rebin_count - r0} fused; "
+          f"vs the fused Session |dx| {u_dx:.3e} (<= 1e-4), |dv| "
+          f"{u_dv:.3e} of max|v| {vscale:.3f} (<= 1e-3 rel); overflow "
+          f"{us.overflow}; launches {launches}", flush=True)
+    check(launches["density"] == UNFUSED_STEPS
+          and launches["forces"] == UNFUSED_STEPS
+          and launches["forces_integrate"] == launches["mono_step"] == 0
+          and launches["reslot"] == u_rebins,
+          f"unfused Session launches {launches} for {UNFUSED_STEPS} steps, "
+          f"{u_rebins} rebins")
+    check(us.overflow == 0 and u_dx <= 1e-4 and u_dv <= 1e-3 * vscale,
+          f"unfused Session vs fused: {u_dx} {u_dv} overflow {us.overflow}")
+    del us, fs10, ua, fa
+
+    # ---- phase 11: K6 and K7 on 1M planes where the trigger fires ---------
+    s = need_sim
+    occ = s.occ
+    planes = (s.xd, s.yd, s.vxd, s.vyd, s.idx_d)
+    fills = (1e9, 1e9, 0.0, 0.0, -1)
+    cand = 9.0 * grid.nx_pad * float(row_bounds(occ.amax(dim=0), grid).sum())
+    cnt_b = 4.0 * grid.ny_pad * grid.nx_pad
+    k6_ms, k7_ms = {}, {}
+    for code_dtype in (torch.int32, torch.int8):
+        k6 = lambda: reslot.select_cuda(s.xd, s.yd, grid, occ, code_dtype)
+        t6 = lambda: reslot.select_torch(s.xd, s.yd, grid, occ, code_dtype)
+        (code, cnt), (wcode, wcnt) = k6(), t6()
+        check(code.dtype == code_dtype and torch.equal(code, wcode)
+              and torch.equal(cnt, wcnt),
+              f"K6 select ({code_dtype}) not bitwise equal to its twin")
+        for plane, fill in zip(planes, fills):
+            g7 = reslot.apply_code_cuda(plane, code, occ, grid, fill)
+            w7 = reslot.apply_code_torch(plane, code, occ, grid, fill)
+            check(g7.dtype == plane.dtype and torch.equal(g7, w7),
+                  f"K7 apply ({plane.dtype} payload, {code_dtype} code) not "
+                  f"bitwise equal to its twin")
+        code_b = code.element_size() * float(code.numel())
+        k7 = lambda: reslot.apply_code_cuda(s.xd, code, occ, grid, 1e9)
+        k6_ms[code_dtype] = dict(
+            ms=kernel_ms(k6, "select_kernel", 50), wrapper_ms=cuda_ms(k6, 50),
+            plain_ms=cuda_ms(t6, 3),
+            **bound(2 * plane_b + code_b + cnt_b + occ_b, cand * RESLOT_OPS))
+        k7_ms[code_dtype] = dict(
+            ms=kernel_ms(k7, "apply_code_kernel", 50),
+            wrapper_ms=cuda_ms(k7, 50),
+            plain_ms=cuda_ms(lambda: reslot.apply_code_torch(
+                s.xd, code, occ, grid, 1e9), 3),
+            **bound(2 * plane_b + code_b + occ_b, 0.0))   # moves words only
+        print(f"# phase 11: K6 select and K7 apply with {code_dtype} codes "
+              f"on the 1M planes ({to_need} steps past phase 4, trigger "
+              f"fired): bitwise equal to their twins (5 payload planes); K6 "
+              f"{k6_ms[code_dtype]['ms']:.4f} ms (bound "
+              f"{k6_ms[code_dtype]['bound_ms']:.4f}), K7 "
+              f"{k7_ms[code_dtype]['ms']:.4f} ms (bound "
+              f"{k7_ms[code_dtype]['bound_ms']:.4f}) per apply (profiler) "
+              f"on {card}", flush=True)
+    got = reslot.reslot_planar(*planes, grid)
+    want = reslot.reslot_cuda(*planes, grid)
+    for name, g_, w_ in zip(("x", "y", "vx", "vy", "idx", "cnt"), got, want):
+        check(g_.dtype == w_.dtype and torch.equal(g_, w_),
+              f"reslot_planar {name} not bitwise equal to K3")
+    kp = lambda: reslot.reslot_planar(*planes, grid)
+    planar_dev = device_ms(kp, ["select_kernel", "apply_code_kernel"], 20)
+    k3_dev = kernel_ms(lambda: reslot.reslot_cuda(*planes, grid),
+                       "reslot_kernel", 20)
+    planar_call = cuda_ms(kp, 20)
+    k3_call = cuda_ms(lambda: reslot.reslot_cuda(*planes, grid), 20)
+    print(f"#   reslot_planar bitwise equal to K3 (six outputs); device time "
+          f"K6 + 5 x K7 {sum(planar_dev.values()):.4f} ms "
+          f"({planar_dev['select_kernel']:.4f} + "
+          f"{planar_dev['apply_code_kernel']:.4f}) vs K3 {k3_dev:.4f} ms "
+          f"(profiler); per call {planar_call:.4f} vs {k3_call:.4f} ms (CUDA "
+          f"events) on {card}", flush=True)
+    for name, src, line, entry in (
+            ("select", "select.cu", "bevy_gpu_fluid_tpu/ops/reslot.py:393",
+             k6_ms[torch.int32]),
+            ("apply_code", "apply_code.cu",
+             "bevy_gpu_fluid_tpu/ops/reslot.py:504", k7_ms[torch.int32])):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"bevy_gpu_fluid_tpu_torch/csrc/{src}", replaces=line,
+            max_abs_err=0.0, library_ms=None,
+            int8_code_ms=(k6_ms if name == "select" else k7_ms)[
+                torch.int8]["ms"], **entry))
+    del s, planes, got, want, code, cnt, wcode, wcnt, g7, w7
+
+    # ---- phase 12: the planar Session at 1M --------------------------------
+    state = bt.init_grid(N_SIDE, N_SIDE, 0.04, dev)
+    fs = vs.Session(state, params, cfg, grid, device=dev)
+    ps = vs.Session(state, params, cfg, grid, device=dev, planar_rebin=True)
+    del state
+    run_ms, run_counts, run_rebins = {}, {}, {}
+    for steps in (WARM_STEPS, MAIN_STEPS):
+        for label, sess_ in (("fused", fs), ("planar", ps)):
+            zero_counts()
+            r0 = sess_.sim.rebin_count
+            torch.cuda.synchronize()
+            start.record()
+            sess_.run(steps)
+            end.record()
+            end.synchronize()
+            run_ms[label] = start.elapsed_time(end) / steps
+            run_counts[label] = counts()
+            run_rebins[label] = sess_.sim.rebin_count - r0
+            lc = run_counts[label]
+            rb = run_rebins[label]
+            want_counts = ((rb, 0, 0) if label == "fused" else (0, rb, 5 * rb))
+            check((lc["reslot"], lc["select"], lc["apply_code"])
+                  == want_counts, f"{label} Session rebin launches {lc} for "
+                  f"{rb} rebins")
+    same = sims_equal(fs.sim, ps.sim)
+    print(f"# phase 12: planar vs fused Session at 1M, {WARM_STEPS} + "
+          f"{MAIN_STEPS} steps in turns: every DenseSim field bitwise equal: "
+          f"{same}; rebins {fs.sim.rebin_count - 1} / "
+          f"{ps.sim.rebin_count - 1}, overflow {fs.sim.overflow} / "
+          f"{ps.sim.overflow}, lost {fs.sim.lost} / {ps.sim.lost}, "
+          f"readmitted {fs.readmitted} / {ps.readmitted}; last "
+          f"{MAIN_STEPS} steps: fused {run_ms['fused']:.4f} ms/step, planar "
+          f"{run_ms['planar']:.4f} ms/step (CUDA events) on {card}; launches "
+          f"fused {run_counts['fused']}, planar {run_counts['planar']}",
+          flush=True)
+    check(same, "planar Session differs from the fused Session")
+    check(run_rebins["planar"] >= 2, "no rebins in the planar main path")
+    for k in kernels:
+        if k["name"] in ("select", "apply_code"):
+            k["launches"] = run_counts["planar"][k["name"]]
+    # peak memory across one rebin, from a copy of the same sim each time
+    while not fs._need(fs.sim):
+        fs.sim = fs._pure_step(fs.sim)
+    snap = fs.sim
+    del fs, ps, need_sim
+    rebin_fns = {label: vs.make_step_parts(params, cfg, grid,
+                                           n=N_SIDE * N_SIDE,
+                                           planar=label == "planar")[1]
+                 for label in ("fused", "planar")}
+    peak, outs = {}, {}
+    for label in ("fused", "planar"):
+        sim_ = dataclasses.replace(snap, **{
+            f.name: getattr(snap, f.name).clone()
+            for f in dataclasses.fields(vs.DenseSim)
+            if isinstance(getattr(snap, f.name), torch.Tensor)})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out_ = rebin_fns[label](sim_)
+        torch.cuda.synchronize()
+        peak[label] = (torch.cuda.max_memory_allocated(),
+                       torch.cuda.max_memory_allocated() - base)
+        outs[label] = [getattr(out_, f).cpu() for f in
+                       ("xd", "yd", "vxd", "vyd", "idx_d", "occ")]
+        del sim_, out_
+    same = all(torch.equal(a, b) for a, b in zip(outs["fused"],
+                                                  outs["planar"]))
+    print(f"#   peak device memory across one 1M rebin "
+          f"(torch.cuda.max_memory_allocated, reset before each; plane "
+          f"{plane_b / 2**20:.2f} MiB): fused {peak['fused'][0] / 2**20:.1f} "
+          f"MiB ({peak['fused'][1] / 2**20:+.1f} over the resident set), "
+          f"planar {peak['planar'][0] / 2**20:.1f} MiB "
+          f"({peak['planar'][1] / 2**20:+.1f}); results bitwise equal: "
+          f"{same} on {card}", flush=True)
+    check(same, "planar rebin differs from the fused rebin")
+    check(peak["planar"][0] < peak["fused"][0],
+          f"planar rebin peak {peak['planar']} not below fused {peak['fused']}")
+    del snap, outs
+    rp = vs.Session(bt.init_grid(3, 3, 0.004, dev), params, rcfg, rgrid,
+                    device=dev, planar_rebin=True)
+    rp.run(60)
+    same = sims_equal(fused_recovery, rp.sim)
+    print(f"#   recovery scene planar: suspended {rp.suspended} / "
+          f"{fused_recovery.suspended}, readmitted {rp.readmitted} / "
+          f"{fused_recovery.readmitted} (planar / fused), planes bitwise "
+          f"equal: {same}", flush=True)
+    check(same and rp.readmitted >= 1, "planar recovery differs from fused")
+
+    # ---- phase 13: the eager solver and the validator ----------------------
+    egrid = grid_solver.default_grid(0.045, -1.0, extent + 1.0,
+                                     y_max=extent * 1.1 + 1.0)
+    est = bt.init_grid(N_SIDE, N_SIDE, 0.04, dev)
+    est, wdiag = cuda_solver.multi_step(est, params, cfg, egrid, EAGER_WARM)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    est, ediag = cuda_solver.multi_step(est, params, cfg, egrid, EAGER_STEPS)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    e_ms = start.elapsed_time(end) / EAGER_STEPS
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (est.x, est.y, est.vx, est.vy, est.rho, est.ax, est.ay))
+    print(f"# phase 13: eager K1 + K8 at 1M on {egrid.plane_shape} "
+          f"({egrid.n_row_blocks} row blocks), {EAGER_WARM} warm-up + "
+          f"{EAGER_STEPS} timed steps: {e_ms:.4f} ms/step (CUDA events; host "
+          f"{wall / EAGER_STEPS * 1e3:.4f}) = "
+          f"{est.n / e_ms * 1e3 / 1e6:.1f}M particle-steps/s on {card}; max "
+          f"overflow {max(wdiag.overflow, ediag.overflow)}; finite {finite}; "
+          f"launches {launches}", flush=True)
+    check(finite, "eager 1M fields not finite")
+    check(launches["density"] == EAGER_STEPS
+          and launches["forces"] == EAGER_STEPS,
+          f"eager K1/K8 launches {launches} != {EAGER_STEPS} steps")
+    check(launches["forces_integrate"] == launches["reslot"]
+          == launches["mono_step"] == 0, f"eager path ran K2/K3/K5: "
+          f"{launches}")
+    # K8 at the eager path's shapes: the planes the next eager step gives
+    # it, held against its twin, timed and bounded on the same inputs
+    b = bin_particles(est.x, est.y, egrid)
+    ep = [to_dense(b, v, f) for v, f in ((est.x, FAR), (est.y, FAR),
+                                          (est.vx, 0.0), (est.vy, 0.0))]
+    eocc = reslot.block_kmax3(ep[0], egrid)
+    erho = cuda_solver.density_cuda(ep[0], ep[1], params, egrid, eocc)
+    f8 = (*ep, erho, params, egrid, eocc)
+    k8 = lambda: cuda_solver.forces_cuda(*f8)
+    t8 = lambda: cuda_solver.forces_torch(*f8)
+    got, want = k8(), t8()
+    a_scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    a_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tb = egrid.row_block
+    ghost0 = all(bool((a[:tb] == 0).all() & (a[-tb:] == 0).all())
+                 for a in got)
+    check(a_err <= 1e-5 * a_scale and ghost0,
+          f"K8 forces on the eager planes: err {a_err}")
+    forces_entry = dict(
+        name="forces", route="cuda",
+        source="bevy_gpu_fluid_tpu_torch/csrc/forces.cu",
+        replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:296",
+        launches=launches["forces"], max_abs_err=a_err,
+        ms=kernel_ms(k8, "forces_kernel", 50), wrapper_ms=cuda_ms(k8, 50),
+        plain_ms=cuda_ms(t8, 3), library_ms=None,
+        **bound_k8(ep[0], eocc, egrid))
+    kernels.append(forces_entry)
+    print(f"#   K8 forces on the eager planes {egrid.plane_shape} after "
+          f"{EAGER_WARM + EAGER_STEPS} steps: max |da| {a_err:.3e} of max "
+          f"|a| {a_scale:.1f} (<= 1e-5 rel), ghost blocks 0: {ghost0}; "
+          f"kernel {forces_entry['ms']:.4f} ms (profiler), wrapper "
+          f"{forces_entry['wrapper_ms']:.4f} ms, twin "
+          f"{forces_entry['plain_ms']:.4f} ms, bound "
+          f"{forces_entry['bound_ms']:.4f} ms by {forces_entry['bound_by']} "
+          f"({forces_entry['bound_bytes'] / 1e6:.1f} MB, "
+          f"{forces_entry['bound_ops'] / 1e9:.3f} GFLOP) on {card}",
+          flush=True)
+    del b, ep, eocc, erho, f8, got, want
+    # where an eager step's time goes: device time by operation over a
+    # few steps, and the device's busy share of the wall time
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est, _ = cuda_solver.multi_step(est, params, cfg, egrid, 5)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    from torch.autograd import DeviceType
+
+    def per_step(e, attr):
+        return (getattr(e, attr, 0) or 0) / 1e3 / 5
+    kern = sorted((per_step(e, "device_time_total"), e.count // 5,
+                   e.key.replace("(anonymous namespace)::", "")
+                   .split("(")[0][-48:])
+                  for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA)
+    ops = sorted((per_step(e, "self_device_time_total"), e.count // 5, e.key)
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CPU
+                 and per_step(e, "self_device_time_total") > 0)
+    busy = sum(k[0] for k in kern)
+    print(f"#   eager step breakdown (torch.profiler, 5 steps): device busy "
+          f"{busy:.4f} of {wall_ms:.4f} ms/step wall ({busy / wall_ms:.0%}); "
+          f"device time per step by op: " + "; ".join(
+              f"{k} {ms:.4f} ms x{c}" for ms, c, k in ops[::-1][:8])
+          + "; by kernel: " + "; ".join(
+              f"{k} {ms:.4f} ms x{c}" for ms, c, k in kern[::-1][:8]),
+          flush=True)
+    del est
+    for solver in ("pallas", "xla"):
+        fsim = bt.Simulation.dam_break(solver=solver, device=dev)
+        img = fsim.run_frame(FRAME_SUBSTEPS)
+        lit = bool((img.int().sum(-1) > 30).any())
+        psim = bt.Simulation.dam_break(solver=solver, device=dev)
+        psim.run(10)
+        a = psim.state
+        rho_rel = float(((a.rho - g.rho).abs() / g.rho).max())
+        p_abs = float((a.p - g.p).abs().max())
+        dx = max(float((a.x - g.x).abs().max()),
+                 float((a.y - g.y).abs().max()))
+        dv = max(float((a.vx - g.vx).abs().max()),
+                 float((a.vy - g.vy).abs().max()))
+        print(f"#   Simulation(solver={solver!r}), 5,041 particles: "
+              f"{FRAME_SUBSTEPS}-step splat frame {tuple(img.shape)} lit: "
+              f"{lit}; parity vs golden after 10 steps: rho {rho_rel:.3e} "
+              f"(<= 3e-3), p {p_abs:.3e} (<= 30), |dx| {dx:.3e} "
+              f"(<= 5.18e-4), |dv| {dv:.3e} (<= 0.2456); overflow "
+              f"{psim.overflow}", flush=True)
+        check(lit, f"{solver}: black frame")
+        check(psim.overflow == 0 and rho_rel <= 0.003 and p_abs <= 30.0
+              and dx <= 0.000518 and dv <= 0.245602,
+              f"{solver}: golden parity bars")
+    vsim = bt.Simulation.dam_break(device=dev, validate_every=VALIDATE_EVERY)
+    reports = []
+    for _ in range(64 // VALIDATE_EVERY):
+        vsim.run(VALIDATE_EVERY)
+        reports.append(vsim.last_parity)
+    fields = vsim.validate(mode="fields")
+    last = vsim.last_parity
+    print(f"#   Simulation.dam_break(validate_every={VALIDATE_EVERY}) on the "
+          f"verlet solver, 64 steps: {len(set(map(id, reports)))} checks, "
+          f"last {last}; validate(mode='fields'): {fields}", flush=True)
+    check(last is not None and len(set(map(id, reports))) == 4,
+          "validate_every did not run every 16 steps")
+    check(last.rho_max_rel <= validator.REL_TOL
+          and last.p_max_rel <= validator.REL_TOL
+          and (last.acc_max_rel <= validator.REL_TOL
+               or last.acc_max_abs <= validator.ACC_ABS_TOL)
+          and last.acc_max_abs > 0.0, f"in-engine parity {last}")
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

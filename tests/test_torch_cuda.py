@@ -6,12 +6,17 @@ they run on a machine with only PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: K3 (reslot) bitwise; K1 1e-5 relative on live slots; K2 and
-K5 positions 1e-5 absolute, velocities 1e-4 of the plane's max |v|, disp2
-1e-4 relative; K5 rho 1e-5 relative on every slot; K4 1e-5 relative on wet
-pixels.  The kernels contract multiply-adds into FMAs and use the hardware
-rsqrt; the twins round every operation.
+Tolerances: K3 (reslot), K6 (select) and K7 (apply) bitwise; K1 1e-5
+relative on live slots; K2 and K5 positions 1e-5 absolute, velocities 1e-4
+of the plane's max |v|, disp2 1e-4 relative; K5 rho 1e-5 relative on every
+slot; K4 1e-5 relative on wet pixels; K8 1e-5 of the plane's max |a| per
+slot.  The kernels contract multiply-adds into FMAs and use the hardware
+rsqrt; the twins round every operation.  The planar Session is bitwise the
+fused one (both rebins route the same values).
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -240,3 +245,123 @@ def test_frame_pump_on_card(cuda):
                 assert isinstance(g, np.ndarray) and (g == i).all()
             else:
                 assert g.is_cuda and bool((g == i).all())
+
+
+def test_forces_kernel_matches_twin(moving_sim):
+    s = moving_sim
+    rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
+    args = (s.xd, s.yd, s.vxd, s.vyd, rho, PARAMS, GRID, s.occ)
+    before = cuda_solver.forces_cuda.launches
+    got = cuda_solver.forces_cuda(*args)
+    assert cuda_solver.forces_cuda.launches == before + 1
+    want = cuda_solver.forces_torch(*args)
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 10.0
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+    tb = GRID.row_block
+    assert bool((got[0][:tb] == 0).all() & (got[1][-tb:] == 0).all())
+
+
+@pytest.fixture(scope="module")
+def rebin_planes(moving_sim):
+    """The moving sim's planes with positions shifted by up to 0.01 (so
+    the rebin moves particles between cells), and their slot bounds."""
+    s = moving_sim
+    rng = np.random.default_rng(1)
+    shift = torch.from_numpy(rng.uniform(-0.01, 0.01, s.xd.shape)
+                             .astype(np.float32)).to(s.xd.device)
+    live = s.xd < 5e8
+    xd = torch.where(live, s.xd + shift, s.xd)
+    planes = (xd, s.yd, s.vxd, s.vyd, s.idx_d)
+    return planes, reslot.block_kmax3(xd, GRID)
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int8])
+def test_select_and_apply_kernels_bitwise_twins(rebin_planes, code_dtype):
+    planes, occ = rebin_planes
+    code, cnt = reslot.select_cuda(planes[0], planes[1], GRID, occ,
+                                   code_dtype)
+    want_code, want_cnt = reslot.select_torch(planes[0], planes[1], GRID,
+                                              occ, code_dtype)
+    assert code.dtype == code_dtype and torch.equal(code, want_code)
+    assert torch.equal(cnt, want_cnt)
+    for plane, fill in zip(planes, (1e9, 1e9, 0.0, 0.0, -1)):
+        got = reslot.apply_code_cuda(plane, code, occ, GRID, fill)
+        want = reslot.apply_code_torch(plane, code, occ, GRID, fill)
+        assert got.dtype == plane.dtype and torch.equal(got, want)
+    fused = reslot.reslot_cuda(*planes, GRID)
+    for a, b in zip(fused, reslot.reslot_planar(*planes, GRID,
+                                                code_dtype=code_dtype)):
+        assert torch.equal(a, b)
+
+
+def test_planar_session_bitwise_fused_on_card(cuda):
+    """Fused and planar Sessions over several rebins on the card: every
+    DenseSim field equal; K6 once and K7 five times per planar rebin, K3
+    never on the planar Session."""
+    def run(**kw):
+        state = bt.init_grid(24, 24, 0.04, cuda)
+        state = state.replace(vx=torch.full((state.n,), 2.0, device=cuda))
+        sess = vs.Session(state, PARAMS, CFG, GRID, device=cuda, **kw)
+        counts = (reslot.reslot_cuda.launches, reslot.select_cuda.launches,
+                  reslot.apply_code_cuda.launches)
+        sess.run(40)
+        return sess, [b - a for a, b in zip(counts, (
+            reslot.reslot_cuda.launches, reslot.select_cuda.launches,
+            reslot.apply_code_cuda.launches))]
+    (a, ca), (b, cb) = run(), run(planar_rebin=True)
+    rebins = a.sim.rebin_count - 1
+    assert rebins >= 3 and ca == [rebins, 0, 0] and cb == [0, rebins,
+                                                             5 * rebins]
+    for f in dataclasses.fields(vs.DenseSim):
+        x, y = getattr(a.sim, f.name), getattr(b.sim, f.name)
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y), f.name
+
+
+def test_eager_pallas_step_on_card_matches_cpu_twins(cuda):
+    """Four eager steps on K1 + K8 (launched once per step) against the
+    same steps on the CPU twins."""
+    grid = bt.GridSpec2D.from_bounds(h=0.045, x_min=-1.0, x_max=2.5,
+                                     y_min=0.0, y_max=3.0)
+    before = (cuda_solver.density_cuda.launches,
+              cuda_solver.forces_cuda.launches)
+    out = []
+    for device in (cuda, "cpu"):
+        state = bt.init_grid(16, 16, 0.04, device)
+        out.append(cuda_solver.multi_step(state, PARAMS, CFG, grid, 4)[0])
+    assert (cuda_solver.density_cuda.launches - before[0],
+            cuda_solver.forces_cuda.launches - before[1]) == (4, 4)
+    a, b = out
+    assert float((a.x.cpu() - b.x).abs().max()) <= 1e-5
+    assert float((a.vy.cpu() - b.vy).abs().max()) <= 1e-4
+    assert float(((a.rho.cpu() - b.rho) / b.rho).abs().max()) <= 1e-5
+
+
+def test_unfused_session_on_card_matches_cpu_twins(cuda):
+    """The unfused Session (K1 + K8 + torch integrate) on the card against
+    the same Session on the CPU twins; K1 and K8 once per step, K2 never."""
+    def run(device):
+        state = bt.init_grid(24, 24, 0.04, device)
+        state = state.replace(vx=torch.full((state.n,), 2.0, device=device))
+        sess = vs.Session(state, PARAMS, CFG, GRID, device=device,
+                          stencils=cuda_solver.make_stencils(GRID))
+        sess.run(40)
+        return sess
+
+    def counts():
+        return (cuda_solver.density_cuda.launches,
+                cuda_solver.forces_cuda.launches,
+                cuda_solver.forces_integrate_cuda.launches)
+    before = counts()
+    a = run(cuda)
+    assert [y - x for x, y in zip(before, counts())] == [40, 40, 0]
+    b = run("cpu")
+    assert a.sim.rebin_count == b.sim.rebin_count >= 3
+    assert (a.overflow, a.readmitted) == (b.overflow, b.readmitted)
+    assert torch.equal(a.sim.idx_d.cpu(), b.sim.idx_d)
+    sa, sb = a.state(), b.state()
+    assert float((sa.x.cpu() - sb.x).abs().max()) <= 1e-5
+    assert float((sa.vy.cpu() - sb.vy).abs().max()) <= 1e-4
+    assert float(((sa.rho.cpu() - sb.rho) / sb.rho).abs().max()) <= 1e-5

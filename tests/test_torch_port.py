@@ -268,6 +268,10 @@ def test_port_imports_no_jax():
     code = ("import sys, bevy_gpu_fluid_tpu_torch, "
             "bevy_gpu_fluid_tpu_torch.models.verlet_solver, "
             "bevy_gpu_fluid_tpu_torch.models.reference, "
+            "bevy_gpu_fluid_tpu_torch.models.grid_solver, "
+            "bevy_gpu_fluid_tpu_torch.models.cuda_solver, "
+            "bevy_gpu_fluid_tpu_torch.ops.reslot, "
+            "bevy_gpu_fluid_tpu_torch.utils.validator, "
             "bevy_gpu_fluid_tpu_torch.utils.convert, "
             "bevy_gpu_fluid_tpu_torch.render.raster, "
             "bevy_gpu_fluid_tpu_torch.render.pump, "
