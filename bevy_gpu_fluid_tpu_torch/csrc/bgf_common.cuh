@@ -13,7 +13,7 @@
 
 namespace bgf {
 
-constexpr int kThreads = 256;       // threads per block, all kernels
+constexpr int kThreads = 256;       // threads per block (K1 uses 128)
 constexpr float kFar = 1.0e9f;      // empty-slot sentinel (ops/binning.FAR)
 constexpr float kHalfFar = 5.0e8f;  // liveness gate: x < FAR / 2
 
@@ -149,6 +149,179 @@ __device__ __forceinline__ int scan_candidates(
     }
   }
   return count;
+}
+
+// ---- the halo tile of K1 (density) and K2 (forces + integrate).
+//
+// A block owns kTileRows cell rows x kTileCols cell columns of one row
+// block, with all cap slot layers; one slot bound kmax (block_kmax) covers
+// it.  4 x 30 measured fastest for both kernels at 1M on the H100 (against
+// 2 x 30 and 8 x 30), with 128 threads per block for K1 and 256 for K2
+// (each kernel's kBlock; 384 and 512 were slower).  Its window, the tile
+// and a one-cell ring, is staged in shared memory once: window slot (wr,
+// kj, wc), wr < kWinRows, kj < kmax, wc < kWinCols, sits at (wr * kmax +
+// kj) * kWinCols + wc and holds the plane element (row0 - 1 + wr, kj,
+// wrap_col(col0 - 1 + wc)).  Live slots are a prefix of each cell's slots
+// (binning ranks from 0, K3 writes rank k at slot k, the spill re-admit
+// continues from the cell's occupancy), so a cell's count is its first
+// slot at or past FAR/2, and every slot past it holds FAR.  The kernels
+// take occ as the sim's block_kmax3, which bounds every cell of the rows a
+// block reads, so no live slot lies at or past kmax.
+
+constexpr int kTileRows = 4;
+constexpr int kTileCols = 30;
+constexpr int kWinRows = kTileRows + 2;
+constexpr int kWinCols = kTileCols + 2;   // 32: one warp stages a window row
+constexpr int kTileCells = kTileRows * kTileCols;
+static_assert(kWinCols == 32, "a lane per window column");
+
+struct Tile {
+  int row0, rows;  // first output row; rows owned (fewer at a row block end)
+  int col0, cols;  // first output column; columns owned (fewer at the right)
+  int rb;          // row block over all ny_pad rows: 0 and nb + 1 are ghosts
+};
+
+// Blocks of a tiled launch over [ny_pad, cap, nx_pad] (host side).
+inline unsigned tiles_for(int ny_pad, int nx_pad, int tb) {
+  return static_cast<unsigned>(
+      (ny_pad / tb) * ((tb + kTileRows - 1) / kTileRows) *
+      ((nx_pad + kTileCols - 1) / kTileCols));
+}
+
+__device__ __forceinline__ Tile tile_of(int nx_pad, int tb) {
+  const int tiles_x = (nx_pad + kTileCols - 1) / kTileCols;
+  const int per_rb = (tb + kTileRows - 1) / kTileRows;
+  const int ty = blockIdx.x / tiles_x;
+  Tile t;
+  t.col0 = (blockIdx.x - ty * tiles_x) * kTileCols;
+  t.cols = min(kTileCols, nx_pad - t.col0);
+  t.rb = ty / per_rb;
+  const int r_in = (ty - t.rb * per_rb) * kTileRows;
+  t.row0 = t.rb * tb + r_in;
+  t.rows = min(kTileRows, tb - r_in);
+  return t;
+}
+
+// Offset of the tile's output slot (tr, s, tc) from the window's first row.
+__device__ __forceinline__ int tile_offset(const Tile& t, int tr, int s,
+                                           int tc, int cap, int nx_pad) {
+  return ((tr + 1) * cap + s) * nx_pad + t.col0 + tc;
+}
+
+// Stages the window and counts each window cell's live slots below kmax
+// into cnt[wr * kWinCols + wc].  Thread c < kWinRows * kWinCols takes
+// window cell (wr, wc) = (c / kWinCols, c % kWinCols), so a warp reads a
+// window row coalesced, and walks its slots kj < kmax, calling stage(i,
+// off) with the window slot index i and the plane offset off from the
+// window's first row, or -1 past the tile's ring (a ragged tile's unused
+// columns, a short tile's unused rows), where it stages FAR.  stage returns
+// the slot's x.  kBlock is the kernel's block size.
+template <int kBlock, class Stage>
+__device__ __forceinline__ void stage_window(const Tile& t, int kmax,
+                                             int cap, int nx_pad, int* cnt,
+                                             Stage stage) {
+  for (int c = threadIdx.x; c < kWinRows * kWinCols; c += kBlock) {
+    const int wr = c / kWinCols;
+    const int wc = c % kWinCols;
+    const bool in = wr <= t.rows + 1 && wc <= t.cols + 1;
+    const int off = wr * cap * nx_pad + wrap_col(t.col0 - 1 + wc, nx_pad);
+    int n = 0;
+#pragma unroll 4
+    for (int kj = 0; kj < kmax; ++kj) {
+      const float xv = stage((wr * kmax + kj) * kWinCols + wc,
+                             in ? off + kj * nx_pad : -1);
+      n += n == kj && xv < kHalfFar;
+    }
+    cnt[c] = n;
+  }
+}
+
+// The max and the sum of the live counts of the 3x3 neighbour cells of
+// tile cell (tr, tc).  The max is the cell's own slot bound (<= kmax): a
+// candidate past its cell's count holds FAR and adds exactly 0 to a live
+// slot's sums, so the taps below the bound give the twin's sums bit for bit.
+__device__ __forceinline__ int2 neighbour_counts(const int* cnt, int tr,
+                                                 int tc) {
+  int2 r = make_int2(0, 0);
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int n = cnt[(tr + dy) * kWinCols + tc + dx];
+      r.x = max(r.x, n);
+      r.y += n;
+    }
+  return r;
+}
+
+// Lists the tile's live (cell, slot) pairs as cell << 8 | slot, cell =
+// tr * kTileCols + tc, in (row, slot, column) order: a warp's lanes take
+// neighbouring cells at one slot, so their stores are coalesced; and their
+// number into *n_pairs.  Warp 0 only (a lane per column, a ballot per row
+// and slot), once cnt is complete; the caller syncs before reading it.
+__device__ __forceinline__ void list_pairs(const Tile& t, int kmax,
+                                           const int* cnt, int* pairs,
+                                           int* n_pairs) {
+  const int lane = threadIdx.x;
+  int n_row[kTileRows];
+#pragma unroll
+  for (int tr = 0; tr < kTileRows; ++tr)
+    n_row[tr] = tr < t.rows && lane < t.cols
+                    ? cnt[(tr + 1) * kWinCols + lane + 1] : 0;
+  int base = 0;
+#pragma unroll
+  for (int tr = 0; tr < kTileRows; ++tr)
+    for (int s = 0; s < kmax; ++s) {
+      const bool live = s < n_row[tr];
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live)
+        pairs[base + __popc(m & ((1u << lane) - 1u))] =
+            (tr * kTileCols + lane) << 8 | s;
+      base += __popc(m);
+    }
+  if (lane == 0) *n_pairs = base;
+}
+
+// Calls fn(tr, s, tc) for every output slot of the tile: a warp per (row,
+// slot) layer, a lane per column, so the writes are coalesced.
+template <int kBlock, class Fn>
+__device__ __forceinline__ void for_tile_slots(const Tile& t, int cap,
+                                               Fn fn) {
+  const int tc = threadIdx.x % 32;
+  if (tc >= t.cols) return;
+  for (int tr = 0; tr < t.rows; ++tr)
+    for (int s = threadIdx.x / 32; s < cap; s += kBlock / 32)
+      fn(tr, s, tc);
+}
+
+// Raises the kernel's dynamic shared memory limit when a launch needs more
+// than the default 48 KB.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int dyn) {
+  return dyn > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn)
+             : cudaSuccess;
+}
+
+// Registers, static and dynamic shared memory, blocks per SM and local
+// (spill) bytes of a kernel launched with `threads` threads and `dyn` bytes
+// of dynamic shared memory, into out[0..4].
+template <class Kernel>
+inline int report_occupancy(Kernel kernel, int threads, int dyn, int* out) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, dyn);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, dyn);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = dyn;
+  out[3] = blocks;
+  out[4] = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 // Block max of d2 >= 0 (warp shuffles, then shared memory), then one

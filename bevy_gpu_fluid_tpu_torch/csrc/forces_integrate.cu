@@ -13,83 +13,148 @@
 // |x_new - x_ref|^2, the next step's rebin trigger.  Accelerations never
 // reach device memory.
 //
-// What bounds it on the H100: instruction issue, not device memory.  Per
-// pair ~35 flops, an rsqrt and one IEEE division (1/rho_j is derived per
-// tap, as no plane of it is stored), and five neighbour floats (x, y, vx,
-// vy, rho) that hit L1/L2 as in K1.  Device memory sees 11 planes (7 read,
-// 4 written): 157 MB at the 1M-particle shapes [696, 8, 640], 0.05 ms at
-// 3.35 TB/s, against 0.415 ms measured (H100 80GB HBM3, 700 W).
-// Design: one thread per output slot, threads along nx_pad (coalesced, no
-// divergence on the kj bound inside a warp).  The displacement max is a
-// warp-shuffle and shared-memory reduction per block, then one atomicMax on
-// the float bits (all values are >= +0, so integer order is float order) into
-// a scalar the host zeroes on the same stream (bgf::block_max_atomic).  The
-// launch covers the ghost blocks and writes their fills (FAR positions, zero
-// velocities).  The pair term and the epilogue are bgf_common.cuh's, shared
-// with K5.
+// What bounds it on the H100.  The bytes bound is 11 planes (7 read, 4
+// written): 157 MB at the 1M-particle shapes [696, 8, 640], 0.047 ms at
+// 3.35 TB/s.  A thread per slot over the whole plane took 0.315 ms on
+// instruction issue: every slot, 72% of them dead at 1M, ran all 9 x kmax
+// taps of ~45 instructions, with the neighbour's EOS and an IEEE division
+// taken again at every tap.  The tiled kernel runs ~0.088 ms (H100 80GB
+// HBM3, 700 W; PERF.md): with the taps removed it still takes ~0.065 ms,
+// so its memory phases (staging five planes, four plane writes, the dead
+// slots' copies) bound it now, at 5 blocks per SM (40 registers, 41 KB of
+// shared memory, which binds).
+//
+// Design: the halo tile of bgf_common.cuh.  A block stages its window once
+// in shared memory, coalesced along nx_pad with the columns wrapped:
+// (x, y, vx, vy) as a float4 and the EOS pair (p_j, 1/rho_j) as a float2,
+// taken once per staged slot with the twin's float operations, so they are
+// the bits the twin uses.  It counts each window cell's live prefix and
+// lists the tile's live (cell, slot) pairs.  A thread per live pair sums
+// its taps in (kj, dx, dy) order up to the largest count of its 9 cells (a
+// candidate past its own cell's count holds FAR: hr = 0, its term is
+// exactly 0 and the sums never hold -0), then runs the epilogue
+// (bgf::integrate) and keeps the displacement max.  A dead slot gets what
+// the masked epilogue gives it, x and y unchanged and zero velocity, from
+// a coalesced pass over the tile's slots with no taps.  The max is a block
+// reduction and one atomicMax on the float bits (all values are >= +0, so
+// integer order is float order) into a scalar the host zeroes on the same
+// stream (bgf::block_max_atomic).  Offsets inside the window are 32-bit
+// from one 64-bit base per block.  The launch covers the ghost blocks and
+// writes their fills (FAR positions, zero velocities).  The pair term and
+// the epilogue are bgf_common.cuh's, shared with K5 and K8.
 
 #include "bgf_common.cuh"
 
 namespace {
 
-__global__ void forces_integrate_kernel(
+constexpr int kBlock = bgf::kThreads;  // 256 (128 measured slower)
+
+// Dynamic shared memory: the (x, y, vx, vy) and (p, 1/rho) windows, the
+// window counts, the pair list and the pair count.
+int forces_integrate_smem(int cap) {
+  return bgf::kWinRows * cap * bgf::kWinCols * (16 + 8) +
+         bgf::kWinRows * bgf::kWinCols * 4 + bgf::kTileCells * cap * 4 + 4;
+}
+
+__global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ rho, const float* __restrict__ ref_x,
     const float* __restrict__ ref_y, const int* __restrict__ occ,
     float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
     float* __restrict__ ovy, unsigned int* __restrict__ disp_bits, int cap,
-    int nx_pad, int tb, int nb, long long total, bgf::ForceConsts fc,
-    float rho0, float k, bgf::IntegrateConsts ic) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
+    int nx_pad, int tb, int nb, bgf::ForceConsts fc, float rho0, float k,
+    bgf::IntegrateConsts ic) {
+  using namespace bgf;
+  const Tile t = tile_of(nx_pad, tb);
+  const long long base = static_cast<long long>(t.row0 - 1) * cap * nx_pad;
+  if (t.rb == 0 || t.rb == nb + 1) {
+    for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {
+      const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
+      ox[g] = kFar;
+      oy[g] = kFar;
+      ovx[g] = 0.0f;
+      ovy[g] = 0.0f;
+    });
+    return;  // the whole block: nothing to add to the displacement max
+  }
+  // (x, y, vx, vy) and (p, 1/rho): kWinRows x kmax x kWinCols each
+  extern __shared__ float4 win[];
+  float2* eos = reinterpret_cast<float2*>(win + kWinRows * cap * kWinCols);
+  int* cnt = reinterpret_cast<int*>(eos + kWinRows * cap * kWinCols);
+  int* pairs = cnt + kWinRows * kWinCols;
+  int* n_pairs = pairs + kTileCells * cap;
+
+  const int kmax = block_kmax(occ, nb, t.rb - 1);
+  stage_window<kBlock>(t, kmax, cap, nx_pad, cnt, [&](int i, int off) {
+    if (off < 0) {
+      win[i] = make_float4(kFar, kFar, 0.0f, 0.0f);
+      eos[i] = make_float2(0.0f, 0.0f);
+      return kFar;
+    }
+    const long long g = base + off;
+    const float xg = x[g];
+    const float rg = rho[g];
+    win[i] = make_float4(xg, y[g], vx[g], vy[g]);
+    eos[i] = make_float2(k * fmaxf(rg - rho0, 0.0f),
+                         1.0f / fmaxf(rg, 1.0e-12f));
+    return xg;
+  });
+  __syncthreads();
+  if (threadIdx.x < 32) list_pairs(t, kmax, cnt, pairs, n_pairs);
+  __syncthreads();
+
+  const int np = *n_pairs;
+  const int rs = kmax * kWinCols;  // window row stride
   float d2 = 0.0f;
-  if (t < total) {
-    const int col = static_cast<int>(t % nx_pad);
-    const int row = static_cast<int>(t / nx_pad / cap);
-    if (!bgf::interior_row(row, tb, nb)) {
-      ox[t] = bgf::kFar;
-      oy[t] = bgf::kFar;
-      ovx[t] = 0.0f;
-      ovy[t] = 0.0f;
-    } else {
-      const int kmax = bgf::block_kmax(occ, nb, row / tb - 1);
-      const float xi = x[t];
-      const float yi = y[t];
-      const float vxi = vx[t];
-      const float vyi = vy[t];
-      const float p_i = k * fmaxf(rho[t] - rho0, 0.0f);
-      float ax = 0.0f;
-      float ay = 0.0f;
-      for (int kj = 0; kj < kmax; ++kj) {
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int c = bgf::wrap_col(col + dx, nx_pad);
-          for (int dy = -1; dy <= 1; ++dy) {
-            const long long j =
-                (static_cast<long long>(row + dy) * cap + kj) * nx_pad + c;
-            const float rho_j = rho[j];
-            bgf::add_pair_accel(xi - x[j], yi - y[j],
-                                p_i + k * fmaxf(rho_j - rho0, 0.0f),
-                                1.0f / fmaxf(rho_j, 1.0e-12f), vx[j] - vxi,
-                                vy[j] - vyi, fc, ax, ay);
-          }
+  for (int p = threadIdx.x; p < np; p += kBlock) {
+    const int c = pairs[p] >> 8;
+    const int s = pairs[p] & 255;
+    const int tr = c / kTileCols;
+    const int tc = c - tr * kTileCols;
+    const int own_i = (tr + 1) * rs + s * kWinCols + tc + 1;
+    const float4 own = win[own_i];
+    const float p_i = eos[own_i].x;
+    const int kb = neighbour_counts(cnt, tr, tc).x;
+    const int b0 = tr * rs + tc;  // window slot (tr, 0, tc): dx = dy = -1
+    float ax = 0.0f;
+    float ay = 0.0f;
+    for (int kj = 0; kj < kb; ++kj) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int j = b0 + dy * rs + kj * kWinCols + dx;
+          const float4 w = win[j];
+          const float2 e = eos[j];
+          add_pair_accel(own.x - w.x, own.y - w.y, p_i + e.x, e.y,
+                         w.z - own.z, w.w - own.w, fc, ax, ay);
         }
-      }
-      float nx, ny, nvx, nvy;
-      const bool live =
-          bgf::integrate(xi, yi, vxi, vyi, ax, ay, ic, nx, ny, nvx, nvy);
-      ox[t] = nx;
-      oy[t] = ny;
-      ovx[t] = nvx;
-      ovy[t] = nvy;
-      if (live) {
-        const float drx = nx - ref_x[t];
-        const float dry = ny - ref_y[t];
-        d2 = drx * drx + dry * dry;
-      }
+    }
+    float nx, ny, nvx, nvy;
+    const bool live =
+        integrate(own.x, own.y, own.z, own.w, ax, ay, ic, nx, ny, nvx, nvy);
+    const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
+    ox[g] = nx;
+    oy[g] = ny;
+    ovx[g] = nvx;
+    ovy[g] = nvy;
+    if (live) {
+      const float drx = nx - ref_x[g];
+      const float dry = ny - ref_y[g];
+      d2 = fmaxf(d2, drx * drx + dry * dry);
     }
   }
-  bgf::block_max_atomic(d2, disp_bits);
+  for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {
+    if (s >= cnt[(tr + 1) * kWinCols + tc + 1]) {
+      const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
+      ox[g] = x[g];
+      oy[g] = y[g];
+      ovx[g] = 0.0f;
+      ovy[g] = 0.0f;
+    }
+  });
+  block_max_atomic(d2, disp_bits);
 }
 
 }  // namespace
@@ -101,14 +166,23 @@ extern "C" int bgf_forces_integrate(
     int cap, int nx_pad, int tb, int nb, float h, float m_half,
     float spiky_c, float visc_mc, float rho0, float k, float dt, float x_min,
     float x_max, float bounce, float floor_y, cudaStream_t stream) {
-  const long long total = static_cast<long long>(ny_pad) * cap * nx_pad;
-  cudaError_t err = cudaMemsetAsync(disp, 0, sizeof(float), stream);
+  const int smem = forces_integrate_smem(cap);
+  cudaError_t err = bgf::allow_smem(forces_integrate_kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(disp, 0, sizeof(float), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  forces_integrate_kernel<<<bgf::blocks_for(total), bgf::kThreads, 0,
-                            stream>>>(
+  forces_integrate_kernel<<<bgf::tiles_for(ny_pad, nx_pad, tb),
+                            kBlock, smem, stream>>>(
       x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy,
-      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb, total,
+      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb,
       bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k,
       bgf::IntegrateConsts{dt, x_min, x_max, bounce, floor_y});
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static and dynamic shared memory per block, blocks per SM and
+// spill bytes of the kernel at slot capacity cap, into out[0..4].
+extern "C" int bgf_forces_integrate_occupancy(int cap, int* out) {
+  return bgf::report_occupancy(forces_integrate_kernel, kBlock,
+                               forces_integrate_smem(cap), out);
 }

@@ -75,6 +75,9 @@ SIGNATURES = {
     # payload, code, occ, out | ny_pad, cap, nx_pad, tb, nb, code_bytes,
     # fill_bits | stream
     "bgf_apply_code": [_P] * 4 + [_I] * 7 + [_P],
+    # cap, out int32[5] (no stream: a query, not a launch)
+    "bgf_density_occupancy": [_I, _P],
+    "bgf_forces_integrate_occupancy": [_I, _P],
 }
 
 
@@ -177,6 +180,19 @@ def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def occupancy(name: str, cap: int) -> dict:
+    """What the tiled kernel ``name`` ("density" or "forces_integrate")
+    takes per block at slot capacity ``cap``, from the CUDA runtime:
+    registers per thread, static and dynamic shared memory bytes, the
+    blocks per SM they allow and the local (spill) bytes per thread."""
+    out = (ctypes.c_int * 5)()
+    rc = getattr(load(), f"bgf_{name}_occupancy")(cap, out)
+    if rc != 0:
+        raise RuntimeError(f"bgf_{name}_occupancy: CUDA error {rc}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "local_bytes"), out))
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -11,14 +11,18 @@ with the validator — then checks them:
 1. device and ``nvidia-smi`` name / power limit;
 2. kernel build (one nvcc per source in parallel, sm_90a), with its time;
 3. after 300 steps: each step kernel (K1 density, K2 forces+integrate, K3
-   reslot) against its PyTorch twin on the Session's own planes; the
-   kernel timed alone (torch.profiler device time), its wrapper and its
-   twin with CUDA events; its bound (bytes or float32 operations of this
-   run's inputs over the H100's peak rates);
+   reslot) against its PyTorch twin on the Session's own planes (K1 on
+   every slot, K2's dead slots bitwise); the kernel timed alone
+   (torch.profiler device time), its wrapper and its twin with CUDA
+   events; its bound (bytes or float32 operations of this run's inputs
+   over the H100's peak rates); the planes' live share and slot bounds,
+   the pair taps K1/K2 need and execute, and their registers, shared
+   memory and blocks per SM;
 4. the main path: 600 more steps, with every launch counter zeroed first;
    fields finite, no overflow or loss, at least 2 rebins, K1/K2 launched
    once per step, K3 once per rebin, K5 never (85 row blocks); ms/step and
-   particle-steps/s;
+   particle-steps/s; then 60 profiled steps: device time per step by
+   kernel and the device's idle share;
 5. overflow recovery (9 particles in one cell at cap 8; a 7-row-block grid,
    so it steps on K5);
 6. parity with the port's golden model on the 5,041-particle scene at the
@@ -106,6 +110,7 @@ UNFUSED_STEPS = 100   # the unfused 1M Session against the fused one
 EAGER_WARM = 100   # eager 1M solver: warm-up steps, then timed steps
 EAGER_STEPS = 200
 VALIDATE_EVERY = 16
+BREAKDOWN_STEPS = 60   # profiled 1M steps after the main path (~10 rebins)
 
 
 def check(cond: bool, what: str) -> None:
@@ -188,6 +193,23 @@ def live_taps(xd, per_block, grid) -> float:
     return 9.0 * float((live * row_bounds(per_block, grid)).sum())
 
 
+def tile_taps(xd, occ, grid) -> tuple[float, float]:
+    """Pair taps of K1/K2 on these planes: (needed, executed).  Needed:
+    each live slot x the live slots of its 3x3 cells below its row block's
+    bound (a FAR candidate adds exactly 0).  Executed: each live slot x 9 x
+    the largest of those 9 counts, the tiled kernels' per-slot loop."""
+    live = (xd < 5e8).sum(dim=1)                       # [ny_pad, nx_pad]
+    km = row_bounds(occ.amax(dim=0), grid)[:, None]
+    nsum = torch.zeros_like(live)
+    nmax = torch.zeros_like(live)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            nb = torch.minimum(torch.roll(live, (-dy, -dx), (0, 1)), km)
+            nsum += nb
+            nmax = torch.maximum(nmax, nb)
+    return float((live * nsum).sum()), 9.0 * float((live * nmax).sum())
+
+
 def bound_k8(xd, occ, grid) -> dict:
     """K8's bound on these planes: five planes read and two written, plus
     occ; K2's force taps of the live slots and ~3 operations of EOS per
@@ -260,23 +282,42 @@ def main() -> None:
     plane_b = 4.0 * s.xd.numel()
     occ_b = 4.0 * s.occ.numel()
     kmax_blocks = s.occ.amax(dim=0)
-    taps = live_taps(s.xd, kmax_blocks, grid)
+    need_taps, run_taps = tile_taps(s.xd, s.occ, grid)
+    slot_taps = 9.0 * grid.nx_pad * grid.cap * float(
+        row_bounds(kmax_blocks, grid).sum())
+    print(f"#   planes after {WARM_STEPS} steps: live share "
+          f"{float(live.float().mean()):.4f} of {s.xd.numel()} slots; slot "
+          f"bound per row block max {int(kmax_blocks.max())}, mean "
+          f"{float(kmax_blocks.float().mean()):.3f}; pair taps: "
+          f"{need_taps / 1e6:.2f}M needed (live x live), "
+          f"{run_taps / 1e6:.2f}M executed by K1/K2 (9 x the largest "
+          f"neighbour count per live slot), {slot_taps / 1e6:.2f}M for a "
+          f"thread per slot over the plane (9 x kmax)")
+    occupancy = {}
+    for name in ("density", "forces_integrate"):
+        occupancy[name] = _build.occupancy(name, grid.cap)
+        print(f"#   {name} at cap {grid.cap}: {occupancy[name]} (registers "
+              f"per thread, shared memory bytes per block, blocks per SM)")
+        check(occupancy[name]["local_bytes"] == 0, f"{name} spills")
     kernels = []
 
     k1 = lambda: cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ)
     t1 = lambda: cuda_solver.density_torch(s.xd, s.yd, params, grid, s.occ)
     rho_k, rho_t = k1(), t1()
-    rel = float(((rho_k - rho_t).abs() / rho_t.abs())[live].max())
-    print(f"#   K1 density: max rel err on live slots {rel:.3e} (<= 1e-5)")
+    rel_all = (rho_k - rho_t).abs() / rho_t.abs().clamp_min(1e-30)
+    rel, rel_dead = float(rel_all.max()), float(rel_all[~live].max())
+    print(f"#   K1 density: max rel err on every slot {rel:.3e} (<= 1e-5; "
+          f"dead slots {rel_dead:.3e})")
     check(rel <= 1e-5, f"K1 density rel err {rel}")
     kernels.append(dict(
         name="density", route="cuda",
         source="bevy_gpu_fluid_tpu_torch/csrc/density.cu",
         replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:224",
-        max_abs_err=float((rho_k - rho_t)[live].abs().max()),
+        max_abs_err=float((rho_k - rho_t).abs().max()),
         ms=kernel_ms(k1, "density_kernel", 50), wrapper_ms=cuda_ms(k1, 50),
         plain_ms=cuda_ms(t1, 3), library_ms=None,
-        **bound(3 * plane_b + occ_b, taps * DENSITY_OPS)))
+        **occupancy["density"],
+        **bound(3 * plane_b + occ_b, need_taps * DENSITY_OPS)))
 
     fargs = (s.xd, s.yd, s.vxd, s.vyd, rho_k, s.ref_xd, s.ref_yd, params,
              cfg, grid, s.occ)
@@ -288,12 +329,19 @@ def main() -> None:
     vel_err = max(float((g - w).abs().max())
                   for g, w in zip(got[2:4], want[2:4]))
     d_err = abs(float(got[4]) - float(want[4]))
+    dead = ~live
+    dead_same = (torch.equal(got[0][dead], s.xd[dead])
+                 and torch.equal(got[1][dead], s.yd[dead])
+                 and bool((got[2][dead] == 0).all()
+                          & (got[3][dead] == 0).all()))
     print(f"#   K2 forces+integrate: |dx| {pos_err:.3e} (<= 1e-5), |dv| "
           f"{vel_err:.3e} of max|v| {vscale:.3f} (<= 1e-4 rel), disp2 "
-          f"{float(got[4]):.6e} vs {float(want[4]):.6e}")
+          f"{float(got[4]):.6e} vs {float(want[4]):.6e}; dead slots x, y "
+          f"unchanged and v 0 (bitwise): {dead_same}")
     check(pos_err <= 1e-5, f"K2 position err {pos_err}")
     check(vel_err <= 1e-4 * vscale, f"K2 velocity err {vel_err}")
     check(d_err <= 1e-4 * float(want[4]), f"K2 disp2 err {d_err}")
+    check(dead_same, "K2 dead slots not x, y unchanged and v 0")
     n_live = float(live.sum())
     kernels.append(dict(
         name="forces_integrate", route="cuda",
@@ -302,8 +350,9 @@ def main() -> None:
         max_abs_err=max(pos_err, vel_err, d_err),
         ms=kernel_ms(k2, "forces_integrate_kernel", 50),
         wrapper_ms=cuda_ms(k2, 50), plain_ms=cuda_ms(t2, 3), library_ms=None,
+        **occupancy["forces_integrate"],
         **bound(11 * plane_b + occ_b + 4,
-                taps * FORCE_OPS + n_live * 20)))   # EOS + integrate: ~20
+                need_taps * FORCE_OPS + n_live * 20)))   # EOS + integrate
 
     planes = (s.xd, s.yd, s.vxd, s.vyd, s.idx_d)
     k3 = lambda: reslot.reslot_cuda(*planes, grid)
@@ -386,6 +435,28 @@ def main() -> None:
           f"K4/K5 launched on the 1M step path: {launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # where a 1M step's time goes: device time by kernel over BREAKDOWN_STEPS
+    # more steps (torch.profiler), and the device's idle share of the
+    # unprofiled ms/step above
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sess.run(BREAKDOWN_STEPS)
+        torch.cuda.synchronize()
+    by_kernel = sorted(
+        ((e.device_time_total / 1e3 / BREAKDOWN_STEPS, e.count,
+          e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+          .split("(")[0].split("<")[0][-40:])
+         for e in prof.key_averages()
+         if getattr(e, "device_type", None) == DeviceType.CUDA
+         and e.device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in by_kernel)
+    print(f"#   1M step breakdown over {BREAKDOWN_STEPS} steps "
+          f"(torch.profiler device time): busy {busy:.4f} ms/step of "
+          f"{ms_step:.4f}, idle share {1 - busy / ms_step:.3f}; by kernel "
+          f"per step: " + "; ".join(
+              f"{name} {ms:.4f} ms x{c}" for ms, c, name in by_kernel[:8]),
+          flush=True)
     out = sess.state()
     check(bool(torch.isfinite(out.x).all() & (out.x < 5e8).all()),
           "extracted state not finite")
@@ -975,7 +1046,6 @@ def main() -> None:
     del b, ep, eocc, erho, f8, got, want
     # where an eager step's time goes: device time by operation over a
     # few steps, and the device's busy share of the wall time
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -983,7 +1053,6 @@ def main() -> None:
         est, _ = cuda_solver.multi_step(est, params, cfg, egrid, 5)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 5
-    from torch.autograd import DeviceType
 
     def per_step(e, attr):
         return (getattr(e, attr, 0) or 0) / 1e3 / 5

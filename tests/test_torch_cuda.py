@@ -7,16 +7,18 @@ they run on a machine with only PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: K3 (reslot), K6 (select) and K7 (apply) bitwise; K1 1e-5
-relative on live slots; K2 and K5 positions 1e-5 absolute, velocities 1e-4
-of the plane's max |v|, disp2 1e-4 relative; K5 rho 1e-5 relative on every
-slot; K4 1e-5 relative on wet pixels; K8 1e-5 of the plane's max |a| per
-slot.  The kernels contract multiply-adds into FMAs and use the hardware
-rsqrt; the twins round every operation.  The planar Session is bitwise the
-fused one (both rebins route the same values).
+relative on every slot, dead ones included; K2 and K5 positions 1e-5
+absolute, velocities 1e-4 of the plane's max |v|, disp2 1e-4 relative, and
+K2's dead slots bitwise (x, y unchanged, zero velocity); K5 rho 1e-5
+relative on every slot; K4 1e-5 relative on wet pixels; K8 1e-5 of the
+plane's max |a| per slot.  The kernels contract multiply-adds into FMAs
+and use the hardware rsqrt; the twins round every operation.  The planar
+Session is bitwise the fused one (both rebins route the same values).
 """
 
 import dataclasses
-
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
 from bevy_gpu_fluid_tpu_torch.ops import reslot
+from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
 from bevy_gpu_fluid_tpu_torch.render import raster
 from bevy_gpu_fluid_tpu_torch.render.pump import FramePump
 
@@ -55,22 +58,33 @@ def moving_sim(cuda):
     return sess.sim
 
 
-def test_density_kernel_matches_twin(moving_sim):
-    s = moving_sim
-    got = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
-    want = cuda_solver.density_torch(s.xd, s.yd, PARAMS, GRID, s.occ)
-    live = s.xd < 5e8
-    rel = ((got - want).abs() / want.abs().clamp_min(1e-30))[live]
+def _tile_shape():
+    """(rows, cols) of the K1/K2 tile, kTileRows and kTileCols of
+    csrc/bgf_common.cuh."""
+    text = (Path(cuda_solver.__file__).parents[1] / "csrc"
+            / "bgf_common.cuh").read_text()
+    return tuple(int(re.search(rf"{name} = (\d+);", text).group(1))
+                 for name in ("kTileRows", "kTileCols"))
+
+
+def _density_matches(s, grid):
+    """K1 against its twin on every slot (dead slots carry coeff x the
+    FAR candidates' h^6 terms; ghost blocks 0); returns K1's rho."""
+    got = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, grid, s.occ)
+    want = cuda_solver.density_torch(s.xd, s.yd, PARAMS, grid, s.occ)
+    rel = (got - want).abs() / want.abs().clamp_min(1e-30)
     assert float(rel.max()) <= 1e-5
-    tb = GRID.row_block
+    tb = grid.row_block
     assert bool((got[:tb] == 0).all() & (got[-tb:] == 0).all())
+    assert float(got[s.xd >= FAR * 0.5].max()) > 0
+    return got
 
 
-def test_forces_integrate_kernel_matches_twin(moving_sim):
-    s = moving_sim
-    rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
-    args = (s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd, PARAMS, CFG,
-            GRID, s.occ)
+def _forces_integrate_matches(s, grid, cfg, rho):
+    """K2 against its twin at the stated tolerances, and its dead slots
+    bitwise: x and y as they were, zero velocity."""
+    args = (s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd, PARAMS, cfg,
+            grid, s.occ)
     got = cuda_solver.forces_integrate_cuda(*args)
     want = cuda_solver.forces_integrate_torch(*args)
     for g, w in zip(got[:2], want[:2]):
@@ -80,6 +94,65 @@ def test_forces_integrate_kernel_matches_twin(moving_sim):
         assert float((g - w).abs().max()) <= 1e-4 * vscale
     assert float(want[4]) > 0
     assert abs(float(got[4]) - float(want[4])) <= 1e-4 * float(want[4])
+    dead = s.xd >= FAR * 0.5
+    assert torch.equal(got[0][dead], s.xd[dead])
+    assert torch.equal(got[1][dead], s.yd[dead])
+    assert bool((got[2][dead] == 0).all() & (got[3][dead] == 0).all())
+
+
+def test_density_kernel_matches_twin(moving_sim):
+    _density_matches(moving_sim, GRID)
+
+
+def test_forces_integrate_kernel_matches_twin(moving_sim):
+    s = moving_sim
+    rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
+    _forces_integrate_matches(s, GRID, CFG, rho)
+
+
+def test_tiled_kernels_on_ragged_crowded_grid(cuda):
+    """K1 and K2 where the grid ends inside a tile (nx_pad and row_block
+    not multiples of the tile), on a crowd that fills cells to cap, in the
+    last real columns: the wrapped ring and the short tiles carry live
+    cells."""
+    rows, cols = _tile_shape()
+    grid = bt.GridSpec2D(origin_x=-0.135, origin_y=-0.135, cell_size=0.0675,
+                         nx=126, ny=22, cap=8, row_block=6)
+    assert grid.nx_pad % cols != 0 and grid.row_block % rows != 0
+    cfg = bt.IntegrateConfig.create(x_min=-0.135, x_max=8.3)
+    rng = np.random.default_rng(5)
+    state = bt.init_grid(50, 30, 0.04, cuda)
+    pos = [torch.from_numpy(rng.uniform(lo, hi, state.n).astype(np.float32))
+           .to(cuda) for lo, hi in ((7.45, 8.3), (0.0, 1.0))]
+    state = state.replace(x=pos[0], y=pos[1])
+    sess = vs.Session(state, PARAMS, cfg, grid, device=cuda)
+    assert sess.overflow > 0                   # more than cap in some cells
+    sess.run(3)
+    s = sess.sim
+    assert int(s.occ.max()) == grid.cap
+    live_cols = (s.xd < FAR * 0.5).any(dim=0).any(dim=0).nonzero()
+    assert int(live_cols.max()) >= grid.nx_pad - grid.nx_pad % cols
+    rho = _density_matches(s, grid)
+    _forces_integrate_matches(s, grid, cfg, rho)
+
+
+def test_tiled_kernels_on_readmitted_planes(cuda):
+    """K1 and K2 on the planes right after the recovery re-admits a
+    spilled particle (the re-admit writes it at the cell's next rank)."""
+    cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
+    sess = vs.Session(bt.init_grid(3, 3, 0.004, cuda), PARAMS, cfg,
+                      MONO_GRID, device=cuda)
+    sim = sess.sim
+    for _ in range(60):
+        if sess._need(sim):
+            before = sim.readmitted
+            sim = sess._rebin(sim)
+            if sim.readmitted > before:
+                break
+        sim = sess._pure_step(sim)
+    assert sim.readmitted >= 1
+    rho = _density_matches(sim, MONO_GRID)
+    _forces_integrate_matches(sim, MONO_GRID, cfg, rho)
 
 
 def test_reslot_kernel_bitwise_twin(moving_sim):

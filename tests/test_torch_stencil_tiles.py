@@ -1,0 +1,212 @@
+"""The premises of the tiled K1 (density) and K2 (forces + integrate)
+kernels, pinned on their PyTorch twins on the CPU (no GPU, no JAX).
+
+The kernels stage a tile of cells in shared memory, read each cell's live
+count off its slots and spend no work on what is exactly zero.  That is
+right only if:
+
+* the live slots of every cell form a prefix of its cap slots, and every
+  dead slot holds FAR in x and y — after the binning, the fused and the
+  planar rebin, and a drop -> suspend -> readmit cycle of the recovery;
+* skipping the candidates past a neighbour's count changes no live output
+  of either twin by a single bit (their terms are exactly +0);
+* a dead slot's density is coeff x (h^6 added n times), n the FAR
+  candidates among its 3x3 cells below the row block's slot bound, so the
+  kernel can write it from the counts alone.
+
+The scenes are small: the kicked 24 x 24 block of tests/test_torch_cuda.py
+and the recovery scene of tests/test_torch_session.py (9 particles in one
+cell at cap 8).  Every comparison is exact.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import bevy_gpu_fluid_tpu_torch as bt
+from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
+from bevy_gpu_fluid_tpu_torch.ops.reslot import block_kmax3, row_kmax, taps
+
+torch.set_num_threads(1)
+
+PARAMS = bt.FluidParams.demo()
+CFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5)
+GRID = vs.default_grid(0.045, -1.0, 2.5, y_max=6.0)
+RCFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
+RGRID = vs.default_grid(0.045, -1.0, 2.5, y_max=3.0)
+SCENES = ("init", "fused_rebin", "planar_rebin", "readmitted")
+
+
+def _kicked(steps):
+    state = bt.init_grid(24, 24, 0.04, "cpu")
+    state = state.replace(vx=torch.full((state.n,), 2.0))
+    sess = vs.Session(state, PARAMS, CFG, GRID, device="cpu")
+    sess.run(steps)
+    return sess
+
+
+def _shifted(sim, seed):
+    """The sim with live x moved by up to 0.01, so a rebin moves particles
+    between cells; its references stay."""
+    rng = np.random.default_rng(seed)
+    shift = torch.from_numpy(rng.uniform(-0.01, 0.01, sim.xd.shape)
+                             .astype(np.float32))
+    return dataclasses.replace(
+        sim, xd=torch.where(sim.xd < FAR * 0.5, sim.xd + shift, sim.xd))
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    """name -> (DenseSim, grid, cfg): the planes each premise is held on."""
+    out = {"init": (_kicked(0).sim, GRID, CFG)}
+    sess = _kicked(12)
+    for name, planar in (("fused_rebin", False), ("planar_rebin", True)):
+        rebin = vs.make_step_parts(PARAMS, CFG, GRID, n=sess.n,
+                                   planar=planar)[1]
+        sim = rebin(_shifted(sess.sim, seed=3))
+        assert sim.rebin_count == sess.sim.rebin_count + 1
+        out[name] = (sim, GRID, CFG)
+    rsess = vs.Session(bt.init_grid(3, 3, 0.004, "cpu"), PARAMS, RCFG, RGRID,
+                       device="cpu")
+    assert rsess.suspended == 1
+    sim = rsess.sim
+    for _ in range(60):       # step until the rebin that readmits
+        if rsess._need(sim):
+            before = sim.readmitted
+            sim = rsess._rebin(sim)
+            if sim.readmitted > before:
+                break
+        sim = rsess._pure_step(sim)
+    assert sim.readmitted >= 1
+    out["readmitted"] = (sim, RGRID, RCFG)
+    return out
+
+
+def _live(sim):
+    return sim.xd < FAR * 0.5
+
+
+def _occ(sim, grid):
+    """The slot bounds the kernels get (the sim's own after a rebin)."""
+    return block_kmax3(sim.xd, grid)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_live_slots_are_a_prefix_and_dead_slots_far(scenes, name):
+    sim, _, _ = scenes[name]
+    live = _live(sim)
+    assert int(live.sum()) > 0
+    # slot k live => slot k - 1 live, in every cell
+    assert not bool((live[:, 1:] & ~live[:, :-1]).any())
+    assert bool((sim.xd[~live] == FAR).all() & (sim.yd[~live] == FAR).all())
+    assert torch.equal(sim.occ, _occ(sim, scenes[name][1]))
+
+
+def _masked_density(xd, yd, grid, occ):
+    """The K1 twin with the FAR candidates skipped, not added as +0."""
+    h2, coeff = cuda_solver._density_consts(PARAMS)
+    kmax = row_kmax(occ, grid)
+    rho = torch.zeros_like(xd)
+    live = (xd < FAR * 0.5).float()
+    for kj in range(int(kmax.max())):
+        for rx, ry, rl in taps((xd, yd, live), kj):
+            ddx = xd - rx
+            ddy = yd - ry
+            d = torch.clamp_min(float(h2) - (ddx * ddx + ddy * ddy), 0.0)
+            rho = torch.where((kj < kmax) & (rl > 0), rho + d * d * d, rho)
+    return rho * float(coeff)
+
+
+def _masked_forces(xd, yd, vxd, vyd, rho_d, grid, occ):
+    """The K2 twin's accelerations with the FAR candidates skipped."""
+    c = cuda_solver._forces_consts(PARAMS)
+    h, m_half, spiky_c, visc_mc = (float(c[k]) for k in
+                                   ("h", "m_half", "spiky_c", "visc_mc"))
+    p, ir = cuda_solver._eos(rho_d, PARAMS)
+    kmax = row_kmax(occ, grid)
+    live = (xd < FAR * 0.5).float()
+    ax = torch.zeros_like(xd)
+    ay = torch.zeros_like(xd)
+    for kj in range(int(kmax.max())):
+        for rx, ry, rvx, rvy, rp, ri, rl in taps(
+                (xd, yd, vxd, vyd, p, ir, live), kj):
+            on = (kj < kmax) & (rl > 0)
+            ddx = xd - rx
+            ddy = yd - ry
+            r2 = ddx * ddx + ddy * ddy
+            inv_r = torch.rsqrt(r2 + float(cuda_solver.EPS2))
+            hr = torch.clamp_min(h - r2 * inv_r, 0.0)
+            fac_p = m_half * (p + rp) * ri * (spiky_c * hr * hr * inv_r)
+            fac_v = visc_mc * ri * hr
+            ax = torch.where(on, ax + (fac_p * ddx + fac_v * (rvx - vxd)), ax)
+            ay = torch.where(on, ay + (fac_p * ddy + fac_v * (rvy - vyd)), ay)
+    return ax, ay
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_density_twin_unchanged_without_far_candidates(scenes, name):
+    sim, grid, _ = scenes[name]
+    occ = _occ(sim, grid)
+    want = cuda_solver.density_torch(sim.xd, sim.yd, PARAMS, grid, occ)
+    got = _masked_density(sim.xd, sim.yd, grid, occ)
+    live = _live(sim)
+    assert float(want[live].min()) > 0
+    assert torch.equal(got[live], want[live])
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_forces_integrate_twin_unchanged_without_far_candidates(scenes, name):
+    sim, grid, cfg = scenes[name]
+    occ = _occ(sim, grid)
+    rho = cuda_solver.density_torch(sim.xd, sim.yd, PARAMS, grid, occ)
+    want = cuda_solver.forces_integrate_torch(
+        sim.xd, sim.yd, sim.vxd, sim.vyd, rho, sim.ref_xd, sim.ref_yd,
+        PARAMS, cfg, grid, occ)
+    ax, ay = _masked_forces(sim.xd, sim.yd, sim.vxd, sim.vyd, rho, grid, occ)
+    got = cuda_solver.integrate(sim.xd, sim.yd, sim.vxd, sim.vyd, ax, ay,
+                                sim.ref_xd, sim.ref_yd, cfg)
+    tb = grid.row_block
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g[tb:-tb], w[tb:-tb])      # the twin's ghost fills
+    assert torch.equal(got[4], want[4])
+    assert float(ax.abs().max()) > 10.0
+    # a dead slot's outputs: x, y as they were, zero velocity
+    dead = ~_live(sim)
+    assert torch.equal(want[0][dead], sim.xd[dead])
+    assert torch.equal(want[1][dead], sim.yd[dead])
+    assert bool((want[2][dead] == 0).all() & (want[3][dead] == 0).all())
+
+
+def _added(h6: np.float32, n_max: int) -> np.ndarray:
+    """table[n] = h6 added n times in float32, left to right, from +0."""
+    table = np.zeros(n_max + 1, dtype=np.float32)
+    for n in range(1, n_max + 1):
+        table[n] = table[n - 1] + h6
+    return table
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_density_twin_dead_slots_from_counts(scenes, name):
+    sim, grid, _ = scenes[name]
+    occ = _occ(sim, grid)
+    rho = cuda_solver.density_torch(sim.xd, sim.yd, PARAMS, grid, occ)
+    h2, coeff = cuda_solver._density_consts(PARAMS)
+    kmax = row_kmax(occ, grid)[:, 0]                      # [ny_pad, 1]
+    count = _live(sim).sum(dim=1)                         # [ny_pad, nx_pad]
+    n = torch.zeros_like(count)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            nb = torch.roll(count, (-dy, -dx), (0, 1))
+            n += kmax - torch.minimum(nb, kmax)
+    table = torch.from_numpy(_added(np.float32(h2) * np.float32(h2)
+                                    * np.float32(h2), 9 * grid.cap))
+    want = table[n] * np.float32(coeff)
+    dead = ~_live(sim)
+    got = rho.masked_fill(~dead, 0.0)
+    expect = want[:, None, :].expand_as(rho).masked_fill(~dead, 0.0)
+    assert torch.equal(got, expect)
+    assert float(rho[dead].max()) > 0            # FAR candidates were there
