@@ -151,29 +151,42 @@ __device__ __forceinline__ int scan_candidates(
   return count;
 }
 
-// ---- the halo tile of K1 (density) and K2 (forces + integrate).
+// ---- the halo tile of K1 (density), K2 (forces + integrate), K8 (forces)
+// and K5 (the mono step).
 //
-// A block owns kTileRows cell rows x kTileCols cell columns of one row
-// block, with all cap slot layers; one slot bound kmax (block_kmax) covers
-// it.  4 x 30 measured fastest for both kernels at 1M on the H100 (against
-// 2 x 30 and 8 x 30), with 128 threads per block for K1 and 256 for K2
-// (each kernel's kBlock; 384 and 512 were slower).  Its window, the tile
-// and a one-cell ring, is staged in shared memory once: window slot (wr,
-// kj, wc), wr < kWinRows, kj < kmax, wc < kWinCols, sits at (wr * kmax +
-// kj) * kWinCols + wc and holds the plane element (row0 - 1 + wr, kj,
-// wrap_col(col0 - 1 + wc)).  Live slots are a prefix of each cell's slots
-// (binning ranks from 0, K3 writes rank k at slot k, the spill re-admit
-// continues from the cell's occupancy), so a cell's count is its first
-// slot at or past FAR/2, and every slot past it holds FAR.  The kernels
-// take occ as the sim's block_kmax3, which bounds every cell of the rows a
-// block reads, so no live slot lies at or past kmax.
+// A block owns G::kRows cell rows x G::kCols cell columns of one row block,
+// with all cap slot layers; one slot bound kmax (block_kmax, or K5's
+// kmax_d) covers it.  For K1, K2 and K8 (the default geometry, StencilTile)
+// 4 x 30 measured fastest for K1 and K2 at 1M on the H100 (against 2 x 30
+// and 8 x 30), with 128 threads per block for K1 and 256 for K2 (each
+// kernel's kBlock; 384 and 512 were slower).  Its window, the tile and a
+// ring of G::kRing cells, is staged in shared memory once: window slot
+// (wr, kj, wc), wr < G::kWinRows, kj < kmax, wc < kWinCols, sits at (wr *
+// kmax + kj) * kWinCols + wc and holds the plane element (row0 - kRing +
+// wr, kj, wrap_col(col0 - kRing + wc)).  Every geometry's window is 32
+// columns wide, one lane per column.  Live slots are a prefix of each
+// cell's slots (binning ranks from 0, K3 writes rank k at slot k, the
+// spill re-admit continues from the cell's occupancy), so a cell's count
+// is its first slot at or past FAR/2, and every slot past it holds FAR.
+// The kernels take occ as the sim's block_kmax3, which bounds every cell of
+// the rows a block reads, so no live slot lies at or past kmax.
+
+constexpr int kWinCols = 32;   // one warp stages a window row
+
+template <int kRows_, int kCols_, int kRing_>
+struct HaloTile {
+  static constexpr int kRows = kRows_;
+  static constexpr int kCols = kCols_;
+  static constexpr int kRing = kRing_;
+  static constexpr int kWinRows = kRows + 2 * kRing;
+  static_assert(kCols + 2 * kRing == kWinCols, "a lane per window column");
+};
 
 constexpr int kTileRows = 4;
 constexpr int kTileCols = 30;
-constexpr int kWinRows = kTileRows + 2;
-constexpr int kWinCols = kTileCols + 2;   // 32: one warp stages a window row
+using StencilTile = HaloTile<kTileRows, kTileCols, 1>;   // K1, K2, K8
+constexpr int kWinRows = StencilTile::kWinRows;
 constexpr int kTileCells = kTileRows * kTileCols;
-static_assert(kWinCols == 32, "a lane per window column");
 
 struct Tile {
   int row0, rows;  // first output row; rows owned (fewer at a row block end)
@@ -182,49 +195,53 @@ struct Tile {
 };
 
 // Blocks of a tiled launch over [ny_pad, cap, nx_pad] (host side).
+template <class G = StencilTile>
 inline unsigned tiles_for(int ny_pad, int nx_pad, int tb) {
   return static_cast<unsigned>(
-      (ny_pad / tb) * ((tb + kTileRows - 1) / kTileRows) *
-      ((nx_pad + kTileCols - 1) / kTileCols));
+      (ny_pad / tb) * ((tb + G::kRows - 1) / G::kRows) *
+      ((nx_pad + G::kCols - 1) / G::kCols));
 }
 
+template <class G = StencilTile>
 __device__ __forceinline__ Tile tile_of(int nx_pad, int tb) {
-  const int tiles_x = (nx_pad + kTileCols - 1) / kTileCols;
-  const int per_rb = (tb + kTileRows - 1) / kTileRows;
+  const int tiles_x = (nx_pad + G::kCols - 1) / G::kCols;
+  const int per_rb = (tb + G::kRows - 1) / G::kRows;
   const int ty = blockIdx.x / tiles_x;
   Tile t;
-  t.col0 = (blockIdx.x - ty * tiles_x) * kTileCols;
-  t.cols = min(kTileCols, nx_pad - t.col0);
+  t.col0 = (blockIdx.x - ty * tiles_x) * G::kCols;
+  t.cols = min(G::kCols, nx_pad - t.col0);
   t.rb = ty / per_rb;
-  const int r_in = (ty - t.rb * per_rb) * kTileRows;
+  const int r_in = (ty - t.rb * per_rb) * G::kRows;
   t.row0 = t.rb * tb + r_in;
-  t.rows = min(kTileRows, tb - r_in);
+  t.rows = min(G::kRows, tb - r_in);
   return t;
 }
 
 // Offset of the tile's output slot (tr, s, tc) from the window's first row.
+template <class G = StencilTile>
 __device__ __forceinline__ int tile_offset(const Tile& t, int tr, int s,
                                            int tc, int cap, int nx_pad) {
-  return ((tr + 1) * cap + s) * nx_pad + t.col0 + tc;
+  return ((tr + G::kRing) * cap + s) * nx_pad + t.col0 + tc;
 }
 
 // Stages the window and counts each window cell's live slots below kmax
-// into cnt[wr * kWinCols + wc].  Thread c < kWinRows * kWinCols takes
+// into cnt[wr * kWinCols + wc].  Thread c < G::kWinRows * kWinCols takes
 // window cell (wr, wc) = (c / kWinCols, c % kWinCols), so a warp reads a
 // window row coalesced, and walks its slots kj < kmax, calling stage(i,
 // off) with the window slot index i and the plane offset off from the
 // window's first row, or -1 past the tile's ring (a ragged tile's unused
 // columns, a short tile's unused rows), where it stages FAR.  stage returns
 // the slot's x.  kBlock is the kernel's block size.
-template <int kBlock, class Stage>
+template <int kBlock, class G = StencilTile, class Stage>
 __device__ __forceinline__ void stage_window(const Tile& t, int kmax,
                                              int cap, int nx_pad, int* cnt,
                                              Stage stage) {
-  for (int c = threadIdx.x; c < kWinRows * kWinCols; c += kBlock) {
+  for (int c = threadIdx.x; c < G::kWinRows * kWinCols; c += kBlock) {
     const int wr = c / kWinCols;
     const int wc = c % kWinCols;
-    const bool in = wr <= t.rows + 1 && wc <= t.cols + 1;
-    const int off = wr * cap * nx_pad + wrap_col(t.col0 - 1 + wc, nx_pad);
+    const bool in = wr < t.rows + 2 * G::kRing && wc < t.cols + 2 * G::kRing;
+    const int off =
+        wr * cap * nx_pad + wrap_col(t.col0 - G::kRing + wc, nx_pad);
     int n = 0;
 #pragma unroll 4
     for (int kj = 0; kj < kmax; ++kj) {
@@ -236,50 +253,120 @@ __device__ __forceinline__ void stage_window(const Tile& t, int kmax,
   }
 }
 
-// The max and the sum of the live counts of the 3x3 neighbour cells of
-// tile cell (tr, tc).  The max is the cell's own slot bound (<= kmax): a
-// candidate past its cell's count holds FAR and adds exactly 0 to a live
-// slot's sums, so the taps below the bound give the twin's sums bit for bit.
-__device__ __forceinline__ int2 neighbour_counts(const int* cnt, int tr,
-                                                 int tc) {
+// The max and the sum of the live counts of the 3x3 window cells whose
+// top-left cell is (wr, wc): the neighbours of window cell (wr + 1, wc + 1).
+// The max is that cell's own slot bound (<= kmax): a candidate past its
+// cell's count holds FAR and adds exactly 0 to a live slot's sums, so the
+// taps below the bound give the twin's sums bit for bit.
+__device__ __forceinline__ int2 neighbour_counts(const int* cnt, int wr,
+                                                 int wc) {
   int2 r = make_int2(0, 0);
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
-      const int n = cnt[(tr + dy) * kWinCols + tc + dx];
+      const int n = cnt[(wr + dy) * kWinCols + wc + dx];
       r.x = max(r.x, n);
       r.y += n;
     }
   return r;
 }
 
-// Lists the tile's live (cell, slot) pairs as cell << 8 | slot, cell =
-// tr * kTileCols + tc, in (row, slot, column) order: a warp's lanes take
-// neighbouring cells at one slot, so their stores are coalesced; and their
-// number into *n_pairs.  Warp 0 only (a lane per column, a ballot per row
-// and slot), once cnt is complete; the caller syncs before reading it.
-__device__ __forceinline__ void list_pairs(const Tile& t, int kmax,
-                                           const int* cnt, int* pairs,
-                                           int* n_pairs) {
-  const int lane = threadIdx.x;
-  int n_row[kTileRows];
+// Lists the live (cell, slot) pairs of a region of the window, cells (rr,
+// rc) with rr < rows <= kRegRows and rc < cols, at window cell (rr + off,
+// rc + off), as cell << 8 | slot with cell = rr * stride + rc, in (row,
+// slot, column) order: a warp's lanes take neighbouring cells at one slot,
+// so their stores are coalesced; and their number into *n_pairs.  One warp
+// (a lane per column, a ballot per row and slot), once cnt is complete;
+// the caller syncs before reading it.
+template <int kRegRows>
+__device__ __forceinline__ void list_region(int rows, int cols, int off,
+                                            int stride, int kmax,
+                                            const int* cnt, int* pairs,
+                                            int* n_pairs) {
+  const int lane = threadIdx.x & 31;
+  int n_row[kRegRows];
 #pragma unroll
-  for (int tr = 0; tr < kTileRows; ++tr)
-    n_row[tr] = tr < t.rows && lane < t.cols
-                    ? cnt[(tr + 1) * kWinCols + lane + 1] : 0;
+  for (int rr = 0; rr < kRegRows; ++rr)
+    n_row[rr] = rr < rows && lane < cols
+                    ? cnt[(rr + off) * kWinCols + lane + off] : 0;
   int base = 0;
 #pragma unroll
-  for (int tr = 0; tr < kTileRows; ++tr)
+  for (int rr = 0; rr < kRegRows; ++rr)
     for (int s = 0; s < kmax; ++s) {
-      const bool live = s < n_row[tr];
+      const bool live = s < n_row[rr];
       const unsigned m = __ballot_sync(0xffffffffu, live);
       if (live)
         pairs[base + __popc(m & ((1u << lane) - 1u))] =
-            (tr * kTileCols + lane) << 8 | s;
+            (rr * stride + lane) << 8 | s;
       base += __popc(m);
     }
   if (lane == 0) *n_pairs = base;
+}
+
+// The tile's live pairs of K1, K2 and K8 (cell = tr * kTileCols + tc).
+// Warp 0 only.
+__device__ __forceinline__ void list_pairs(const Tile& t, int kmax,
+                                           const int* cnt, int* pairs,
+                                           int* n_pairs) {
+  list_region<kTileRows>(t.rows, t.cols, 1, kTileCols, kmax, cnt, pairs,
+                         n_pairs);
+}
+
+// The force window of K2 and K8: stages (x, y, vx, vy) into win and the
+// EOS pair (p, 1/rho) into eos, taken once per staged slot with the twin's
+// float operations (p = k max(rho - rho0, 0), 1/max(rho, 1e-12)), so they
+// are the bits the twin uses; FAR and zeros past the tile's ring.  base is
+// the plane offset of the window's first row.
+template <int kBlock>
+__device__ __forceinline__ void stage_force_window(
+    const Tile& t, int kmax, int cap, int nx_pad, long long base,
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const float* __restrict__ rho, float rho0, float k, float4* win,
+    float2* eos, int* cnt) {
+  stage_window<kBlock>(t, kmax, cap, nx_pad, cnt, [&](int i, int off) {
+    if (off < 0) {
+      win[i] = make_float4(kFar, kFar, 0.0f, 0.0f);
+      eos[i] = make_float2(0.0f, 0.0f);
+      return kFar;
+    }
+    const long long g = base + off;
+    const float xg = x[g];
+    const float rg = rho[g];
+    win[i] = make_float4(xg, y[g], vx[g], vy[g]);
+    eos[i] = make_float2(k * fmaxf(rg - rho0, 0.0f),
+                         1.0f / fmaxf(rg, 1.0e-12f));
+    return xg;
+  });
+}
+
+// The pressure + viscosity acceleration of one live slot (own: its x, y,
+// vx, vy; p_i its pressure) from a staged window: the taps at window slots
+// b0 + dy * rs + kj * kWinCols + dx, kj < kb, in (kj, dx, dy) order (b0 the
+// slot (row - 1, 0, col - 1) of the slot's cell, rs the window row stride).
+// A tap on a FAR slot adds +-0, and the sums start at +0, so they never
+// hold -0 and equal the twin's, which takes every tap below kmax.
+__device__ __forceinline__ float2 tile_accel(const float4* win,
+                                             const float2* eos, int b0,
+                                             int rs, int kb, float4 own,
+                                             float p_i,
+                                             const ForceConsts& fc) {
+  float ax = 0.0f;
+  float ay = 0.0f;
+  for (int kj = 0; kj < kb; ++kj) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int j = b0 + dy * rs + kj * kWinCols + dx;
+        const float4 w = win[j];
+        const float2 e = eos[j];
+        add_pair_accel(own.x - w.x, own.y - w.y, p_i + e.x, e.y,
+                       w.z - own.z, w.w - own.w, fc, ax, ay);
+      }
+  }
+  return make_float2(ax, ay);
 }
 
 // Calls fn(tr, s, tc) for every output slot of the tile: a warp per (row,

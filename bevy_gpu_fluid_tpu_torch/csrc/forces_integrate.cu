@@ -28,12 +28,13 @@
 // in shared memory, coalesced along nx_pad with the columns wrapped:
 // (x, y, vx, vy) as a float4 and the EOS pair (p_j, 1/rho_j) as a float2,
 // taken once per staged slot with the twin's float operations, so they are
-// the bits the twin uses.  It counts each window cell's live prefix and
-// lists the tile's live (cell, slot) pairs.  A thread per live pair sums
-// its taps in (kj, dx, dy) order up to the largest count of its 9 cells (a
-// candidate past its own cell's count holds FAR: hr = 0, its term is
-// exactly 0 and the sums never hold -0), then runs the epilogue
-// (bgf::integrate) and keeps the displacement max.  A dead slot gets what
+// the bits the twin uses (bgf::stage_force_window, shared with K8).  It
+// counts each window cell's live prefix and lists the tile's live (cell,
+// slot) pairs.  A thread per live pair sums its taps in (kj, dx, dy) order
+// up to the largest count of its 9 cells (bgf::tile_accel: a candidate past
+// its own cell's count holds FAR: hr = 0, its term is exactly 0 and the
+// sums never hold -0), then runs the epilogue (bgf::integrate) and keeps
+// the displacement max.  A dead slot gets what
 // the masked epilogue gives it, x and y unchanged and zero velocity, from
 // a coalesced pass over the tile's slots with no taps.  The max is a block
 // reduction and one atomicMax on the float bits (all values are >= +0, so
@@ -86,20 +87,8 @@ __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
   int* n_pairs = pairs + kTileCells * cap;
 
   const int kmax = block_kmax(occ, nb, t.rb - 1);
-  stage_window<kBlock>(t, kmax, cap, nx_pad, cnt, [&](int i, int off) {
-    if (off < 0) {
-      win[i] = make_float4(kFar, kFar, 0.0f, 0.0f);
-      eos[i] = make_float2(0.0f, 0.0f);
-      return kFar;
-    }
-    const long long g = base + off;
-    const float xg = x[g];
-    const float rg = rho[g];
-    win[i] = make_float4(xg, y[g], vx[g], vy[g]);
-    eos[i] = make_float2(k * fmaxf(rg - rho0, 0.0f),
-                         1.0f / fmaxf(rg, 1.0e-12f));
-    return xg;
-  });
+  stage_force_window<kBlock>(t, kmax, cap, nx_pad, base, x, y, vx, vy, rho,
+                             rho0, k, win, eos, cnt);
   __syncthreads();
   if (threadIdx.x < 32) list_pairs(t, kmax, cnt, pairs, n_pairs);
   __syncthreads();
@@ -114,26 +103,13 @@ __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
     const int tc = c - tr * kTileCols;
     const int own_i = (tr + 1) * rs + s * kWinCols + tc + 1;
     const float4 own = win[own_i];
-    const float p_i = eos[own_i].x;
-    const int kb = neighbour_counts(cnt, tr, tc).x;
-    const int b0 = tr * rs + tc;  // window slot (tr, 0, tc): dx = dy = -1
-    float ax = 0.0f;
-    float ay = 0.0f;
-    for (int kj = 0; kj < kb; ++kj) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const int j = b0 + dy * rs + kj * kWinCols + dx;
-          const float4 w = win[j];
-          const float2 e = eos[j];
-          add_pair_accel(own.x - w.x, own.y - w.y, p_i + e.x, e.y,
-                         w.z - own.z, w.w - own.w, fc, ax, ay);
-        }
-    }
+    // b0: window slot (tr, 0, tc), the tap dx = dy = -1
+    const float2 a = tile_accel(win, eos, tr * rs + tc, rs,
+                                neighbour_counts(cnt, tr, tc).x, own,
+                                eos[own_i].x, fc);
     float nx, ny, nvx, nvy;
-    const bool live =
-        integrate(own.x, own.y, own.z, own.w, ax, ay, ic, nx, ny, nvx, nvy);
+    const bool live = integrate(own.x, own.y, own.z, own.w, a.x, a.y, ic,
+                                nx, ny, nvx, nvy);
     const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
     ox[g] = nx;
     oy[g] = ny;

@@ -75,9 +75,13 @@ SIGNATURES = {
     # payload, code, occ, out | ny_pad, cap, nx_pad, tb, nb, code_bytes,
     # fill_bits | stream
     "bgf_apply_code": [_P] * 4 + [_I] * 7 + [_P],
+    # ny_pad, nx_pad, tb | stream: an empty kernel on K5's launch shape
+    "bgf_mono_floor": [_I] * 3 + [_P],
     # cap, out int32[5] (no stream: a query, not a launch)
     "bgf_density_occupancy": [_I, _P],
     "bgf_forces_integrate_occupancy": [_I, _P],
+    "bgf_forces_occupancy": [_I, _P],
+    "bgf_mono_step_occupancy": [_I, _P],
 }
 
 
@@ -183,8 +187,8 @@ def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
 
 
 def occupancy(name: str, cap: int) -> dict:
-    """What the tiled kernel ``name`` ("density" or "forces_integrate")
-    takes per block at slot capacity ``cap``, from the CUDA runtime:
+    """What the tiled kernel ``name`` ("density", "forces_integrate",
+    "forces" or "mono_step") takes per block at slot capacity ``cap``, from the CUDA runtime:
     registers per thread, static and dynamic shared memory bytes, the
     blocks per SM they allow and the local (spill) bytes per thread."""
     out = (ctypes.c_int * 5)()

@@ -25,10 +25,11 @@ The kernels loop over the 3x3 neighbour cells x ``kmax`` slots in
 (kj, dx, dy) order, with ``kmax`` the per-row-block bound from ``occ``
 (ops/reslot.block_kmax3; K5 widens it for its density, see
 ``mono_bounds``); slots past a cell's occupancy hold FAR and add exactly 0
-to a live slot.  K1 and K2 stage a tile of cells in shared memory and work
-only on live slots, up to the largest count of their 3x3 cells, writing
-the dead slots' outputs from the counts (``csrc/bgf_common.cuh``): so their
-``occ`` must bound every cell's occupancy, as ``block_kmax3`` does.
+to a live slot.  The four kernels here stage a tile of cells in shared
+memory and work only on live slots, up to the largest count of their 3x3
+cells, writing the dead slots' outputs from the counts
+(``csrc/bgf_common.cuh``): so their ``occ`` must bound every cell's
+occupancy, as ``block_kmax3`` does.
 Neighbour columns wrap modulo ``nx_pad`` like the TPU lane roll.  Each
 wrapper owns the ghost-block fills of its outputs (rho 0, positions FAR,
 velocities 0): a garbage or NaN ghost row would poison the neighbouring

@@ -32,16 +32,21 @@ with the validator — then checks them:
    False)`` and ``FramePump(pull=True)``, counters zeroed first, K4 once
    per frame; ms/frame;
 8. K5 (mono step) on the three ``--fps`` grids (10k, 5,041, 1,024
-   particles) after 100 steps, against its twin on every slot and against
-   K1 + K2 on live slots; K5 timed against K1 + K2 per grid, device time
-   and per step call in turns (the mono threshold, measured on the card);
+   particles) after 100 steps, against its twin (live slots within the
+   tolerances, every output of the dead slots bitwise) and against K1 + K2
+   on live slots; K5 timed against K1 + K2 per grid, device time and per
+   step call in turns (the mono threshold, measured on the card); K5's
+   registers, shared memory and blocks per SM, the bytes its tiles stage,
+   and an empty kernel on K5's launch shape (the practical floor);
 9. the ``--fps`` plan through ``Simulation``: 16 substeps per frame, splat
    per frame and batched x32, field batched x32, each with the pump on
    the device and pulled to the host; counters zeroed first: K5 once per
    step, K1/K2 never, K4 once per field frame; overflow 0, frames not
    black; ``run_frames(4)`` bitwise equal to 4 ``run_frame`` calls; FPS;
-10. K8 (forces alone) on phase 3's 1M planes against its twin, and K1 ->
-    K8 -> torch integrate against K2; then the unfused 1M Session
+10. K8 (forces alone) on phase 3's 1M planes against its twin (dead slots
+    and ghost blocks bitwise +0), its registers, shared memory and blocks
+    per SM and the bytes its tiles stage beside its bound, and K1 -> K8 ->
+    torch integrate against K2; then the unfused 1M Session
     (``stencils=make_stencils``), counters zeroed first: K1 and K8 once
     per step, K3 once per rebin, K2 never; per particle against a fused
     Session from the same state;
@@ -59,9 +64,9 @@ with the validator — then checks them:
 13. the eager solver (K1 + K8, a sort-based binning every step) at 1M on
     bench.py's pallas grid: 100 steps of warm-up, 200 timed, counters
     zeroed first (K1 and K8 once per step, K2/K3/K5 never); ms/step; K8
-    against its twin on the planes the next eager step gives it, timed,
-    with its bound (the kernel table's K8 row: launches, time and bound
-    all from this path); then
+    against its twin on the planes the next eager step gives it (dead
+    slots bitwise +0), timed, with its bound and staged bytes (the kernel
+    table's K8 row: launches, time and bound all from this path); then
     ``Simulation(solver="pallas" | "xla")`` on the 5,041-particle scene
     (frames, golden parity at phase 6's bars) and ``validate_every=16``
     on the verlet solver (64 steps) with ``validate(mode="fields")``.
@@ -77,6 +82,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -217,6 +223,47 @@ def bound_k8(xd, occ, grid) -> dict:
     taps = live_taps(xd, occ.amax(dim=0), grid)
     return bound(7 * 4.0 * xd.numel() + 4.0 * occ.numel(),
                  taps * FORCE_OPS + float((xd < 5e8).sum()) * 3)
+
+
+def tile_shape(source: str, rows: str, cols: str) -> tuple[int, int]:
+    """(rows, cols) of a tiled kernel's tile, read from its source under
+    bevy_gpu_fluid_tpu_torch/csrc: the integers after the two patterns."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bevy_gpu_fluid_tpu_torch", "csrc", source)) as f:
+        text = f.read()
+    return tuple(int(re.search(p, text).group(1)) for p in (rows, cols))
+
+
+def staged_bytes(per_block, grid, shape, ring, planes) -> float:
+    """Bytes a tiled kernel reads into shared memory: each interior tile's
+    cells and its ring of ``ring`` cells, below its row block's slot bound
+    (``per_block`` [nb]), from ``planes`` float32 planes (the window slots
+    past the grid's edge, staged as FAR without a read, excluded)."""
+    rows, cols = shape
+    tb = grid.row_block
+    row_cells = sum(min(rows, tb - r) + 2 * ring for r in range(0, tb, rows))
+    col_cells = sum(min(cols, grid.nx_pad - c) + 2 * ring
+                    for c in range(0, grid.nx_pad, cols))
+    return 4.0 * planes * row_cells * col_cells * float(per_block.sum())
+
+
+def bits_equal(a, b) -> bool:
+    """Two float32 tensors equal bit for bit (-0 is not +0)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def k8_check(got, want, xd, label):
+    """K8 against its twin: max |da| within 1e-5 of max |a|, dead slots
+    (ghost blocks included) +0 bit for bit.  Returns (err, max |a|)."""
+    a_scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    a_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    dead = xd >= 5e8
+    dead0 = all(bits_equal(a[dead], torch.zeros_like(a[dead]))
+                and bits_equal(a[dead], w[dead]) for a, w in zip(got, want))
+    check(a_err <= 1e-5 * a_scale and dead0,
+          f"K8 forces on {label}: err {a_err}, dead slots +0: {dead0}")
+    return a_err, a_scale
 
 
 def sims_equal(a, b) -> bool:
@@ -618,6 +665,10 @@ def main() -> None:
         check(rho_rel <= 1e-5 and bool((got[4][~pos] == 0).all()),
               f"K5 {n}: rho rel err {rho_rel}")
         check(d_err <= 1e-4 * float(want[5]), f"K5 {n}: disp2 err {d_err}")
+        lv = s.xd < 5e8
+        dead_same = all(bits_equal(g[~lv], w[~lv])
+                        for g, w in zip(got[:5], want[:5]))
+        check(dead_same, f"K5 {n}: dead slots not bitwise the twin's")
 
         def two():
             rho = cuda_solver.density_cuda(s.xd, s.yd, params, grid8, s.occ)
@@ -625,7 +676,6 @@ def main() -> None:
                 s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd, params,
                 cfg8, grid8, s.occ)
         rho2, (x2, y2, vx2, vy2, d2) = two()
-        lv = s.xd < 5e8
         two_pos = max(float((got[0] - x2).abs().max()),
                       float((got[1] - y2).abs().max()))
         two_vel = max(float((got[2] - vx2).abs().max()),
@@ -644,7 +694,8 @@ def main() -> None:
         print(f"# phase 8: K5 {n} particles, grid {grid8.plane_shape} "
               f"({grid8.n_row_blocks} row blocks) after {MONO_STEPS} steps: "
               f"vs twin |dx| {pos_err:.3e}, |dv| {vel_err:.3e} of max|v| "
-              f"{vscale:.3f}, rho rel {rho_rel:.3e} (all slots); vs K1+K2 "
+              f"{vscale:.3f}, rho rel {rho_rel:.3e} (all slots), dead "
+              f"slots bitwise {dead_same}; vs K1+K2 "
               f"|dx| {two_pos:.3e} |dv| {two_vel:.3e} rho {two_rho:.3e} "
               f"(live); K5 {mono_dev:.4f} ms vs K1+K2 "
               f"{sum(two_dev.values()):.4f} ms device time (profiler), "
@@ -656,6 +707,14 @@ def main() -> None:
             ops = (live_taps(s.xd, kd, grid8) * DENSITY_OPS
                    + live_taps(s.xd, kf, grid8) * FORCE_OPS
                    + float(lv.sum()) * 20)
+            mono_occ = _build.occupancy("mono_step", grid8.cap)
+            check(mono_occ["local_bytes"] == 0, "mono_step spills")
+            # the practical floor: an empty kernel on K5's launch shape
+            floor_ms = kernel_ms(lambda: _build.launch(
+                "bgf_mono_floor", dev, grid8.ny_pad, grid8.nx_pad,
+                grid8.row_block), "mono_floor_kernel", 100)
+            mono_tile = tile_shape("mono_step.cu", r"kMonoRows = (\d+);",
+                                   r"HaloTile<kMonoRows, (\d+), 2>")
             mono_entry = dict(
                 name="mono_step", route="cuda",
                 source="bevy_gpu_fluid_tpu_torch/csrc/mono_step.cu",
@@ -663,8 +722,19 @@ def main() -> None:
                 max_abs_err=0.0, ms=mono_dev, wrapper_ms=mono_call,
                 plain_ms=cuda_ms(t5, 3), library_ms=None,
                 two_kernel_ms=sum(two_dev.values()), two_kernel_call_ms=two_call,
+                empty_kernel_ms=floor_ms, **mono_occ,
                 **bound(11 * 4.0 * s.xd.numel() + 4.0 * s.occ.numel() + 4,
                         ops))
+            staged = staged_bytes(kd, grid8, mono_tile, 2, 4)
+            print(f"#   K5 at {grid8.plane_shape}: tile {mono_tile} + a "
+                  f"two-cell ring, {mono_occ} (registers per thread, shared "
+                  f"memory bytes per block, blocks per SM); stages "
+                  f"{staged / 1e6:.3f} MB (x, y, vx, vy below kmax_d) and "
+                  f"writes {5 * 4.0 * s.xd.numel() / 1e6:.3f} MB; bound "
+                  f"{mono_entry['bound_ms']:.4f} ms by "
+                  f"{mono_entry['bound_by']}; an empty kernel on its launch "
+                  f"shape {floor_ms:.4f} ms (profiler), the practical floor; "
+                  f"K5 {mono_dev:.4f} ms on {card}", flush=True)
         mono_entry["max_abs_err"] = max(
             mono_entry["max_abs_err"], pos_err, vel_err, d_err,
             float((got[4] - want[4]).abs().max()))
@@ -746,11 +816,7 @@ def main() -> None:
     k8 = lambda: cuda_solver.forces_cuda(*f8)
     t8 = lambda: cuda_solver.forces_torch(*f8)
     got, want = k8(), t8()
-    a_scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
-    a_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    tb = grid.row_block
-    ghost0 = all(bool((a[:tb] == 0).all() & (a[-tb:] == 0).all())
-                 for a in got)
+    a_err, a_scale = k8_check(got, want, s.xd, "the Session's planes")
     unfused = cuda_solver.integrate(s.xd, s.yd, s.vxd, s.vyd, *got, s.ref_xd,
                                     s.ref_yd, cfg)
     fused = cuda_solver.forces_integrate_cuda(
@@ -763,20 +829,28 @@ def main() -> None:
                 for a, b in zip(unfused[2:4], fused[2:4]))
     u_d = abs(float(unfused[4]) - float(fused[4]))
     print(f"# phase 10: K8 forces on the 1M planes: max |da| {a_err:.3e} of "
-          f"max |a| {a_scale:.1f} (<= 1e-5 rel), ghost blocks 0: {ghost0}; "
+          f"max |a| {a_scale:.1f} (<= 1e-5 rel), dead slots and ghost blocks "
+          f"+0 bitwise; "
           f"K1 -> K8 -> torch integrate vs K2: |dx| {u_pos:.3e} (<= 1e-5), "
           f"|dv| {u_vel:.3e} of max|v| {vscale:.3f} (<= 1e-4 rel), disp2 "
           f"{float(unfused[4]):.6e} vs {float(fused[4]):.6e}", flush=True)
-    check(a_err <= 1e-5 * a_scale and ghost0, f"K8 forces err {a_err}")
     check(u_pos <= 1e-5 and u_vel <= 1e-4 * vscale
           and u_d <= 1e-4 * float(fused[4]),
           f"K1+K8+integrate vs K2: {u_pos} {u_vel} {u_d}")
     k8_session = bound_k8(s.xd, s.occ, grid)
+    forces_occ = _build.occupancy("forces", grid.cap)
+    check(forces_occ["local_bytes"] == 0, "forces spills")
+    k8_tile = tile_shape("bgf_common.cuh", r"kTileRows = (\d+);",
+                         r"kTileCols = (\d+);")
     print(f"#   forces on the Session's planes: kernel "
           f"{kernel_ms(k8, 'forces_kernel', 50):.4f} ms (profiler), bound "
-          f"{k8_session['bound_ms']:.4f} ms by {k8_session['bound_by']} at "
-          f"{grid.plane_shape} on {card} (the table's K8 row is phase 13's)",
-          flush=True)
+          f"{k8_session['bound_ms']:.4f} ms by {k8_session['bound_by']} "
+          f"({k8_session['bound_bytes'] / 1e6:.1f} MB: 7 whole planes); the "
+          f"tiles stage {staged_bytes(s.occ.amax(dim=0), grid, k8_tile, 1, 5) / 1e6:.1f}"
+          f" MB (5 planes below kmax, tile {k8_tile} + a one-cell ring) and "
+          f"write 2 planes; {forces_occ} (registers per thread, shared "
+          f"memory bytes per block, blocks per SM) at {grid.plane_shape} on "
+          f"{card} (the table's K8 row is phase 13's)", flush=True)
     del warm, s, rho, f8, got, want, unfused, fused
     # the unfused Session posture (K1 + K8 + torch integrate) against the
     # fused one, from the same 1M state
@@ -1017,13 +1091,7 @@ def main() -> None:
     k8 = lambda: cuda_solver.forces_cuda(*f8)
     t8 = lambda: cuda_solver.forces_torch(*f8)
     got, want = k8(), t8()
-    a_scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
-    a_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    tb = egrid.row_block
-    ghost0 = all(bool((a[:tb] == 0).all() & (a[-tb:] == 0).all())
-                 for a in got)
-    check(a_err <= 1e-5 * a_scale and ghost0,
-          f"K8 forces on the eager planes: err {a_err}")
+    a_err, a_scale = k8_check(got, want, ep[0], "the eager planes")
     forces_entry = dict(
         name="forces", route="cuda",
         source="bevy_gpu_fluid_tpu_torch/csrc/forces.cu",
@@ -1031,18 +1099,21 @@ def main() -> None:
         launches=launches["forces"], max_abs_err=a_err,
         ms=kernel_ms(k8, "forces_kernel", 50), wrapper_ms=cuda_ms(k8, 50),
         plain_ms=cuda_ms(t8, 3), library_ms=None,
+        **_build.occupancy("forces", egrid.cap),
         **bound_k8(ep[0], eocc, egrid))
     kernels.append(forces_entry)
     print(f"#   K8 forces on the eager planes {egrid.plane_shape} after "
           f"{EAGER_WARM + EAGER_STEPS} steps: max |da| {a_err:.3e} of max "
-          f"|a| {a_scale:.1f} (<= 1e-5 rel), ghost blocks 0: {ghost0}; "
-          f"kernel {forces_entry['ms']:.4f} ms (profiler), wrapper "
+          f"|a| {a_scale:.1f} (<= 1e-5 rel), dead slots and ghost blocks +0 "
+          f"bitwise; kernel {forces_entry['ms']:.4f} ms (profiler), wrapper "
           f"{forces_entry['wrapper_ms']:.4f} ms, twin "
           f"{forces_entry['plain_ms']:.4f} ms, bound "
           f"{forces_entry['bound_ms']:.4f} ms by {forces_entry['bound_by']} "
           f"({forces_entry['bound_bytes'] / 1e6:.1f} MB, "
-          f"{forces_entry['bound_ops'] / 1e9:.3f} GFLOP) on {card}",
-          flush=True)
+          f"{forces_entry['bound_ops'] / 1e9:.3f} GFLOP); the tiles stage "
+          f"{staged_bytes(eocc.amax(dim=0), egrid, k8_tile, 1, 5) / 1e6:.1f} "
+          f"MB and write 2 planes; live share "
+          f"{float((ep[0] < 5e8).float().mean()):.4f} on {card}", flush=True)
     del b, ep, eocc, erho, f8, got, want
     # where an eager step's time goes: device time by operation over a
     # few steps, and the device's busy share of the wall time

@@ -10,8 +10,9 @@ Tolerances: K3 (reslot), K6 (select) and K7 (apply) bitwise; K1 1e-5
 relative on every slot, dead ones included; K2 and K5 positions 1e-5
 absolute, velocities 1e-4 of the plane's max |v|, disp2 1e-4 relative, and
 K2's dead slots bitwise (x, y unchanged, zero velocity); K5 rho 1e-5
-relative on every slot; K4 1e-5 relative on wet pixels; K8 1e-5 of the
-plane's max |a| per slot.  The kernels contract multiply-adds into FMAs
+relative on live slots and every output of its dead slots bitwise; K4
+1e-5 relative on wet pixels; K8 1e-5 of the plane's max |a| per slot and
+its dead slots bitwise (+0).  The kernels contract multiply-adds into FMAs
 and use the hardware rsqrt; the twins round every operation.  The planar
 Session is bitwise the fused one (both rebins route the same values).
 """
@@ -28,7 +29,7 @@ import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
 from bevy_gpu_fluid_tpu_torch.ops import reslot
-from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
+from bevy_gpu_fluid_tpu_torch.ops.binning import FAR, bin_particles, to_dense
 from bevy_gpu_fluid_tpu_torch.render import raster
 from bevy_gpu_fluid_tpu_torch.render.pump import FramePump
 
@@ -58,13 +59,23 @@ def moving_sim(cuda):
     return sess.sim
 
 
+def _csrc(name):
+    return (Path(cuda_solver.__file__).parents[1] / "csrc" / name).read_text()
+
+
 def _tile_shape():
-    """(rows, cols) of the K1/K2 tile, kTileRows and kTileCols of
+    """(rows, cols) of the K1/K2/K8 tile, kTileRows and kTileCols of
     csrc/bgf_common.cuh."""
-    text = (Path(cuda_solver.__file__).parents[1] / "csrc"
-            / "bgf_common.cuh").read_text()
+    text = _csrc("bgf_common.cuh")
     return tuple(int(re.search(rf"{name} = (\d+);", text).group(1))
                  for name in ("kTileRows", "kTileCols"))
+
+
+def _mono_tile_shape():
+    """(rows, cols) of K5's tile (MonoTile of csrc/mono_step.cu)."""
+    text = _csrc("mono_step.cu")
+    return (int(re.search(r"kMonoRows = (\d+);", text).group(1)),
+            int(re.search(r"HaloTile<kMonoRows, (\d+), 2>", text).group(1)))
 
 
 def _density_matches(s, grid):
@@ -100,6 +111,50 @@ def _forces_integrate_matches(s, grid, cfg, rho):
     assert bool((got[2][dead] == 0).all() & (got[3][dead] == 0).all())
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _forces_matches(xd, yd, vxd, vyd, rho, grid, occ):
+    """K8 against its twin: 1e-5 of max |a| per slot, and the dead slots
+    (ghost blocks included) bitwise +0."""
+    args = (xd, yd, vxd, vyd, rho, PARAMS, grid, occ)
+    before = cuda_solver.forces_cuda.launches
+    got = cuda_solver.forces_cuda(*args)
+    assert cuda_solver.forces_cuda.launches == before + 1
+    want = cuda_solver.forces_torch(*args)
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 10.0
+    dead = xd >= FAR * 0.5
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+        assert bool((_bits(g[dead]) == 0).all())
+        assert torch.equal(_bits(g[dead]), _bits(w[dead]))
+
+
+def _mono_matches(s, grid, cfg):
+    """K5 against its twin: positions 1e-5, velocities 1e-4 of max |v|,
+    rho 1e-5 relative on live slots, disp2 1e-4 relative; every output of
+    the dead slots (ghost blocks included) bitwise."""
+    args = (s.xd, s.yd, s.vxd, s.vyd, s.ref_xd, s.ref_yd, PARAMS, cfg, grid,
+            s.occ)
+    got = cuda_solver.mono_step_cuda(*args)
+    want = cuda_solver.mono_step_torch(*args)
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-5
+    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
+    for g, w in zip(got[2:4], want[2:4]):
+        assert float((g - w).abs().max()) <= 1e-4 * vscale
+    live = s.xd < FAR * 0.5
+    rho_g, rho_w = got[4], want[4]
+    assert float(((rho_g - rho_w).abs() / rho_w)[live].max()) <= 1e-5
+    for g, w in zip(got[:5], want[:5]):
+        assert torch.equal(_bits(g[~live]), _bits(w[~live]))
+    assert float(rho_w[~live].max()) > 0      # dead rho from the counts
+    assert float(want[5]) > 0
+    assert abs(float(got[5]) - float(want[5])) <= 1e-4 * float(want[5])
+
+
 def test_density_kernel_matches_twin(moving_sim):
     _density_matches(moving_sim, GRID)
 
@@ -110,15 +165,18 @@ def test_forces_integrate_kernel_matches_twin(moving_sim):
     _forces_integrate_matches(s, GRID, CFG, rho)
 
 
-def test_tiled_kernels_on_ragged_crowded_grid(cuda):
-    """K1 and K2 where the grid ends inside a tile (nx_pad and row_block
-    not multiples of the tile), on a crowd that fills cells to cap, in the
-    last real columns: the wrapped ring and the short tiles carry live
-    cells."""
+@pytest.fixture(scope="module")
+def crowded(cuda):
+    """A grid that ends inside a tile (nx_pad and row_block not multiples
+    of the K1/K2/K8 tile nor of K5's), on a crowd that fills cells to cap
+    in the last real columns, after 3 steps: the wrapped ring and the
+    short tiles carry live cells.  Returns (sim, grid, cfg)."""
     rows, cols = _tile_shape()
+    mono_rows, mono_cols = _mono_tile_shape()
     grid = bt.GridSpec2D(origin_x=-0.135, origin_y=-0.135, cell_size=0.0675,
-                         nx=126, ny=22, cap=8, row_block=6)
+                         nx=126, ny=22, cap=8, row_block=7)
     assert grid.nx_pad % cols != 0 and grid.row_block % rows != 0
+    assert grid.nx_pad % mono_cols != 0 and grid.row_block % mono_rows != 0
     cfg = bt.IntegrateConfig.create(x_min=-0.135, x_max=8.3)
     rng = np.random.default_rng(5)
     state = bt.init_grid(50, 30, 0.04, cuda)
@@ -132,8 +190,26 @@ def test_tiled_kernels_on_ragged_crowded_grid(cuda):
     assert int(s.occ.max()) == grid.cap
     live_cols = (s.xd < FAR * 0.5).any(dim=0).any(dim=0).nonzero()
     assert int(live_cols.max()) >= grid.nx_pad - grid.nx_pad % cols
+    assert int(live_cols.max()) >= grid.nx_pad - grid.nx_pad % mono_cols
+    return s, grid, cfg
+
+
+def test_tiled_kernels_on_ragged_crowded_grid(crowded):
+    """K1 and K2 where the grid ends inside a tile, on cap-full cells in
+    the ragged last column tile and in short row tiles."""
+    s, grid, cfg = crowded
     rho = _density_matches(s, grid)
     _forces_integrate_matches(s, grid, cfg, rho)
+
+
+def test_forces_kernel_on_ragged_crowded_grid(crowded):
+    s, grid, _ = crowded
+    rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, grid, s.occ)
+    _forces_matches(s.xd, s.yd, s.vxd, s.vyd, rho, grid, s.occ)
+
+
+def test_mono_kernel_on_ragged_crowded_grid(crowded):
+    _mono_matches(*crowded)
 
 
 def test_tiled_kernels_on_readmitted_planes(cuda):
@@ -227,22 +303,24 @@ def test_field_kernel_matches_twin(moving_sim, P):
 
 
 def test_mono_kernel_matches_twin(mono_sim):
-    s = mono_sim
-    args = (s.xd, s.yd, s.vxd, s.vyd, s.ref_xd, s.ref_yd, PARAMS, CFG,
-            MONO_GRID, s.occ)
-    got = cuda_solver.mono_step_cuda(*args)
-    want = cuda_solver.mono_step_torch(*args)
-    for g, w in zip(got[:2], want[:2]):
-        assert float((g - w).abs().max()) <= 1e-5
-    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
-    for g, w in zip(got[2:4], want[2:4]):
-        assert float((g - w).abs().max()) <= 1e-4 * vscale
-    rho_g, rho_w = got[4], want[4]
-    pos = rho_w > 0
-    assert bool((rho_g[~pos] == 0).all())
-    assert float(((rho_g - rho_w).abs() / rho_w)[pos].max()) <= 1e-5
-    assert float(want[5]) > 0
-    assert abs(float(got[5]) - float(want[5])) <= 1e-4 * float(want[5])
+    _mono_matches(mono_sim, MONO_GRID, CFG)
+
+
+@pytest.mark.parametrize("n", [10_000, 5_041, 1_024])
+def test_mono_kernel_on_fps_grids(cuda, n):
+    """K5 against its twin on the three grids of bench.py --fps after 30
+    steps of their dam break (which the Session steps on K5)."""
+    side = int(round(n ** 0.5))
+    ext = side * 0.04
+    cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=ext + 1.0)
+    grid = vs.default_grid(0.045, -1.0, ext + 1.0, y_max=ext * 1.1 + 1.0)
+    assert grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+    sess = vs.Session(bt.init_grid(side, side, 0.04, cuda), PARAMS, cfg,
+                      grid, device=cuda)
+    before = cuda_solver.mono_step_cuda.launches
+    sess.run(30)
+    assert cuda_solver.mono_step_cuda.launches - before == 30
+    _mono_matches(sess.sim, grid, cfg)
 
 
 def test_mono_kernel_matches_two_kernels_on_live_slots(mono_sim):
@@ -323,17 +401,23 @@ def test_frame_pump_on_card(cuda):
 def test_forces_kernel_matches_twin(moving_sim):
     s = moving_sim
     rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
-    args = (s.xd, s.yd, s.vxd, s.vyd, rho, PARAMS, GRID, s.occ)
-    before = cuda_solver.forces_cuda.launches
-    got = cuda_solver.forces_cuda(*args)
-    assert cuda_solver.forces_cuda.launches == before + 1
-    want = cuda_solver.forces_torch(*args)
-    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
-    assert scale > 10.0
-    for g, w in zip(got, want):
-        assert float((g - w).abs().max()) <= 1e-5 * scale
-    tb = GRID.row_block
-    assert bool((got[0][:tb] == 0).all() & (got[1][-tb:] == 0).all())
+    _forces_matches(s.xd, s.yd, s.vxd, s.vyd, rho, GRID, s.occ)
+
+
+def test_forces_kernel_on_eager_planes(cuda):
+    """K8 on the planes the eager step bins (cells of h, 8 rows a block)
+    from a state 10 steps into the kicked block's flight."""
+    grid = bt.GridSpec2D.from_bounds(h=0.045, x_min=-1.0, x_max=2.5,
+                                     y_min=0.0, y_max=3.0)
+    state = bt.init_grid(24, 24, 0.04, cuda)
+    state = state.replace(vx=torch.full((state.n,), 2.0, device=cuda))
+    state = cuda_solver.multi_step(state, PARAMS, CFG, grid, 10)[0]
+    b = bin_particles(state.x, state.y, grid)
+    xd, yd, vxd, vyd = (to_dense(b, v, f) for v, f in (
+        (state.x, FAR), (state.y, FAR), (state.vx, 0.0), (state.vy, 0.0)))
+    occ = reslot.block_kmax3(xd, grid)
+    rho = cuda_solver.density_cuda(xd, yd, PARAMS, grid, occ)
+    _forces_matches(xd, yd, vxd, vyd, rho, grid, occ)
 
 
 @pytest.fixture(scope="module")

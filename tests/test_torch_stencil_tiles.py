@@ -1,5 +1,6 @@
-"""The premises of the tiled K1 (density) and K2 (forces + integrate)
-kernels, pinned on their PyTorch twins on the CPU (no GPU, no JAX).
+"""The premises of the tiled K1 (density), K2 (forces + integrate), K8
+(forces alone) and K5 (mono step) kernels, pinned on their PyTorch twins
+on the CPU (no GPU, no JAX).
 
 The kernels stage a tile of cells in shared memory, read each cell's live
 count off its slots and spend no work on what is exactly zero.  That is
@@ -9,14 +10,19 @@ right only if:
   dead slot holds FAR in x and y — after the binning, the fused and the
   planar rebin, and a drop -> suspend -> readmit cycle of the recovery;
 * skipping the candidates past a neighbour's count changes no live output
-  of either twin by a single bit (their terms are exactly +0);
+  of any twin by a single bit (their terms are exactly +-0);
 * a dead slot's density is coeff x (h^6 added n times), n the FAR
-  candidates among its 3x3 cells below the row block's slot bound, so the
-  kernel can write it from the counts alone.
+  candidates among its 3x3 cells below the slot bound (the row block's for
+  K1, K5's kmax_d for K5), so the kernel can write it from the counts
+  alone;
+* a dead slot's K8 accelerations are exactly +0, and K5 leaves a dead
+  slot's x and y as they were with velocity +0.
 
 The scenes are small: the kicked 24 x 24 block of tests/test_torch_cuda.py
-and the recovery scene of tests/test_torch_session.py (9 particles in one
-cell at cap 8).  Every comparison is exact.
+(on the 12-row-block grid, and on a 7-row-block grid where the Session
+steps on K5) and the recovery scene of tests/test_torch_session.py (9
+particles in one cell at cap 8).  Every comparison is exact, on the float
+bits (``.view(torch.int32)``, which tells -0 from +0).
 """
 
 import dataclasses
@@ -38,13 +44,13 @@ CFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5)
 GRID = vs.default_grid(0.045, -1.0, 2.5, y_max=6.0)
 RCFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
 RGRID = vs.default_grid(0.045, -1.0, 2.5, y_max=3.0)
-SCENES = ("init", "fused_rebin", "planar_rebin", "readmitted")
+SCENES = ("init", "fused_rebin", "planar_rebin", "readmitted", "mono")
 
 
-def _kicked(steps):
+def _kicked(steps, grid=GRID):
     state = bt.init_grid(24, 24, 0.04, "cpu")
     state = state.replace(vx=torch.full((state.n,), 2.0))
-    sess = vs.Session(state, PARAMS, CFG, GRID, device="cpu")
+    sess = vs.Session(state, PARAMS, CFG, grid, device="cpu")
     sess.run(steps)
     return sess
 
@@ -83,6 +89,8 @@ def scenes():
         sim = rsess._pure_step(sim)
     assert sim.readmitted >= 1
     out["readmitted"] = (sim, RGRID, RCFG)
+    assert RGRID.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+    out["mono"] = (_kicked(12, RGRID).sim, RGRID, CFG)   # stepped on K5
     return out
 
 
@@ -210,3 +218,95 @@ def test_density_twin_dead_slots_from_counts(scenes, name):
     expect = want[:, None, :].expand_as(rho).masked_fill(~dead, 0.0)
     assert torch.equal(got, expect)
     assert float(rho[dead].max()) > 0            # FAR candidates were there
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_forces_twin_unchanged_without_far_candidates(scenes, name):
+    sim, grid, _ = scenes[name]
+    occ = _occ(sim, grid)
+    rho = cuda_solver.density_torch(sim.xd, sim.yd, PARAMS, grid, occ)
+    want = cuda_solver.forces_torch(sim.xd, sim.yd, sim.vxd, sim.vyd, rho,
+                                    PARAMS, grid, occ)
+    got = _masked_forces(sim.xd, sim.yd, sim.vxd, sim.vyd, rho, grid, occ)
+    live = _live(sim)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g[live]), _bits(w[live]))
+    assert float(want[0][live].abs().max()) > 10.0
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_forces_twin_dead_slots_exactly_plus_zero(scenes, name):
+    """K8 writes +0 to dead slots and ghost blocks without their taps."""
+    sim, grid, _ = scenes[name]
+    occ = _occ(sim, grid)
+    rho = cuda_solver.density_torch(sim.xd, sim.yd, PARAMS, grid, occ)
+    ax, ay = cuda_solver.forces_torch(sim.xd, sim.yd, sim.vxd, sim.vyd, rho,
+                                      PARAMS, grid, occ)
+    dead = ~_live(sim)
+    assert bool((sim.vxd[dead] == 0).all() & (sim.vyd[dead] == 0).all())
+    for a in (ax, ay):
+        assert bool((_bits(a[dead]) == 0).all())
+
+
+def _mono(sim, grid, cfg):
+    return cuda_solver.mono_step_torch(sim.xd, sim.yd, sim.vxd, sim.vyd,
+                                       sim.ref_xd, sim.ref_yd, PARAMS, cfg,
+                                       grid, _occ(sim, grid))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_mono_twin_unchanged_without_far_candidates(scenes, name):
+    """K5's live outputs are the FAR-masked density -> forces -> integrate
+    chain bit for bit; its dead slots keep x, y and get velocity +0."""
+    sim, grid, cfg = scenes[name]
+    occ = _occ(sim, grid)
+    want = _mono(sim, grid, cfg)
+    rho = _masked_density(sim.xd, sim.yd, grid, occ)
+    ax, ay = _masked_forces(sim.xd, sim.yd, sim.vxd, sim.vyd, rho, grid, occ)
+    got = cuda_solver.integrate(sim.xd, sim.yd, sim.vxd, sim.vyd, ax, ay,
+                                sim.ref_xd, sim.ref_yd, cfg)
+    live = _live(sim)
+    for g, w in zip((*got[:4], rho), want[:5]):
+        assert torch.equal(_bits(g[live]), _bits(w[live]))
+    assert torch.equal(_bits(got[4]), _bits(want[5]))
+    assert float(want[5]) > 0
+    dead = ~live
+    assert torch.equal(_bits(want[0][dead]), _bits(sim.xd[dead]))
+    assert torch.equal(_bits(want[1][dead]), _bits(sim.yd[dead]))
+    for v in want[2:4]:
+        assert bool((_bits(v[dead]) == 0).all())
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_mono_twin_dead_rho_from_counts(scenes, name):
+    """A dead slot's K5 rho is coeff x (h^6 added n times), n = the sum
+    over its 3x3 cells of kmax_d - the cell's live count; 0 on the ghost
+    blocks."""
+    sim, grid, cfg = scenes[name]
+    rho = _mono(sim, grid, cfg)[4]
+    h2, coeff = cuda_solver._density_consts(PARAMS)
+    tb, nb = grid.row_block, grid.n_row_blocks
+    kmax_d = cuda_solver.mono_bounds(_occ(sim, grid), grid)[0]
+    kd = torch.zeros(grid.ny_pad, dtype=torch.int64)
+    kd[tb:tb + nb * tb] = kmax_d.repeat_interleave(tb)
+    kd = kd[:, None]                                      # [ny_pad, 1]
+    count = _live(sim).sum(dim=1)                         # [ny_pad, nx_pad]
+    n = torch.zeros_like(count)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            nb_count = torch.roll(count, (-dy, -dx), (0, 1))
+            assert bool((nb_count[tb:-tb] <= kd[tb:-tb]).all())
+            n += kd - nb_count
+    table = torch.from_numpy(_added(np.float32(h2) * np.float32(h2)
+                                    * np.float32(h2), 9 * grid.cap))
+    want = table[n[tb:-tb]] * np.float32(coeff)
+    dead = ~_live(sim)[tb:-tb]
+    got = rho[tb:-tb].masked_fill(~dead, 0.0)
+    expect = want[:, None, :].expand_as(got).masked_fill(~dead, 0.0)
+    assert torch.equal(_bits(got), _bits(expect))
+    assert float(rho[tb:-tb][dead].max()) > 0
+    assert bool((_bits(rho[:tb]) == 0).all() & (_bits(rho[-tb:]) == 0).all())

@@ -1,23 +1,28 @@
-"""The tiled K1 (density) and K2 (forces + integrate) CUDA kernels against
-variants of their design, on one NVIDIA GPU, at the 1M-particle Session's
-planes (bench.py's dam break after 300 steps, as chip_smoke.py phase 3).
+"""The tiled CUDA kernels K1 (density), K2 (forces + integrate), K8 (forces
+alone) and K5 (mono step) against variants of their design, on one NVIDIA
+GPU: K1, K2 and K8 at the 1M-particle Session's planes (bench.py's dam
+break after 300 steps, as chip_smoke.py phase 3), K5 at the 10k grid of
+``bench.py --fps`` after 100 steps (as chip_smoke.py phase 8).
 
     python3 tools/torch_tile_study.py [variant ...]     # default: all
 
-The planes come from one run of the committed kernels (300 steps, saved
-under ``bevy_gpu_fluid_tpu_torch/_build/tile_study/``, the build
-directory, not committed), so every variant is timed on the same inputs.
-Each variant is the port's ``csrc/`` with the source edits listed in
-``VARIANTS``, built in its own copy of the package there and run in its
-own process.  It prints, per variant: K1's and
-K2's device time (torch.profiler, 50 calls), their registers, shared memory
-and blocks per SM, and, for the variants that compute the same function,
-K1's max relative error against its twin on every slot and whether K2
-matches its twin (positions 1e-5, velocities 1e-4 of max |v|, dead slots
-bitwise).  ``no_taps`` and ``no_dead`` drop work and are timings only:
-what the tap loop and the dead-slot pass cost.  The variants run in turns,
-``--rounds`` times (2 by default), and the last line is one JSON object
-with every reading.
+The planes come from one run of the committed kernels (saved under
+``bevy_gpu_fluid_tpu_torch/_build/tile_study/``, the build directory, not
+committed), so every variant is timed on the same inputs.  Each variant is
+the port's ``csrc/`` with the source edits listed in ``VARIANTS``, built in
+its own copy of the package there and run in its own process.  It prints,
+per variant: each kernel's device time (torch.profiler, 50 calls), their
+registers, shared memory and blocks per SM, and, for the variants that
+compute the same function, K1's max relative error against its twin on
+every slot and whether K2, K8 and K5 match their twins (K2 and K5:
+positions 1e-5, velocities 1e-4 of max |v|, dead slots bitwise; K5 rho
+1e-5 relative on live slots; K8 1e-5 of max |a|, dead slots +0).
+``no_taps`` and ``no_dead`` drop work and are timings only: what the tap
+loops and the dead-slot passes cost.  ``skip_far_taps`` (a branch per
+candidate past its cell's count) is K1's alone: K2's, K8's and K5's force
+taps share ``bgf::tile_accel``, which loops to the largest count.  The
+variants run in turns, ``--rounds`` times (2 by default), and the last
+line is one JSON object with every reading.
 """
 
 from __future__ import annotations
@@ -35,12 +40,11 @@ STUDY = os.path.join(PKG, "_build", "tile_study")
 
 _K1_TAP = ("        for (int dy = 0; dy < 3; ++dy) {\n"
            "          const float2 w")
-_K2_TAP = ("        for (int dy = 0; dy < 3; ++dy) {\n"
-           "          const int j")
 _SKIP = ("        for (int dy = 0; dy < 3; ++dy)\n"
          "          if (kj < cnt[(tr + dy) * kWinCols + tc + dx]) {\n")
-_TAPS = "    for (int kj = 0; kj < kb; ++kj) {"
-_DEAD = "    if (s >= cnt[(tr + 1) * kWinCols + tc + 1])"
+_TAPS = "  for (int kj = 0; kj < kb; ++kj) {"
+_DEAD = "    if (s >= cnt[(tr + "
+_STENCIL = ("density.cu", "forces_integrate.cu", "forces.cu", "mono_step.cu")
 
 # variant -> [(file under csrc/, text, replacement)]
 VARIANTS = {
@@ -48,13 +52,17 @@ VARIANTS = {
     "tile_2x30": [("bgf_common.cuh", "kTileRows = 4;", "kTileRows = 2;")],
     "tile_8x30": [("bgf_common.cuh", "kTileRows = 4;", "kTileRows = 8;")],
     "k1_256_threads": [("density.cu", "kBlock = 128;", "kBlock = 256;")],
+    "k8_128_threads": [("forces.cu", "kBlock = bgf::kThreads;",
+                        "kBlock = 128;")],
+    "mono_1x28": [("mono_step.cu", "kMonoRows = 2;", "kMonoRows = 1;")],
+    "mono_4x28": [("mono_step.cu", "kMonoRows = 2;", "kMonoRows = 4;")],
+    "mono_8x28": [("mono_step.cu", "kMonoRows = 2;", "kMonoRows = 8;")],
     "skip_far_taps": [           # a branch per candidate past its count
-        ("density.cu", _K1_TAP, _SKIP + "          const float2 w"),
-        ("forces_integrate.cu", _K2_TAP, _SKIP + "          const int j")],
+        ("density.cu", _K1_TAP, _SKIP + "          const float2 w")],
     "no_taps": [(f, _TAPS, _TAPS.replace("kj < kb", "kj < 0"))
-                for f in ("density.cu", "forces_integrate.cu")],
+                for f in ("density.cu", "bgf_common.cuh", "mono_step.cu")],
     "no_dead": [(f, _DEAD, _DEAD.replace("if (", "if (false && "))
-                for f in ("density.cu", "forces_integrate.cu")],
+                for f in _STENCIL],
 }
 TIMING_ONLY = ("no_taps", "no_dead")
 
@@ -72,21 +80,30 @@ dev = torch.device("cuda")
 params = bt.FluidParams.demo()
 cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=41.0)
 grid = vs.default_grid(0.045, -1.0, 41.0, y_max=45.0)
+cfg10k = bt.IntegrateConfig.create(x_min=-1.0, x_max=5.0)      # 100 x 100
+grid10k = vs.default_grid(0.045, -1.0, 5.0, y_max=4.0 * 1.1 + 1.0)
 FIELDS = ("xd", "yd", "vxd", "vyd", "ref_xd", "ref_yd", "occ")
 '''
 
-# the 1M Session on the committed kernels, 300 steps, its planes saved
+# the 1M Session (300 steps) and the 10k one (100 steps, on K5) on the
+# committed kernels, their planes saved
 PLANES = SCENE + r'''
 sess = vs.Session(bt.init_grid(1000, 1000, 0.04, dev), params, cfg, grid,
                   device=dev)
 sess.run(300)
-torch.save({f: getattr(sess.sim, f) for f in FIELDS}, sys.argv[2])
+small = vs.Session(bt.init_grid(100, 100, 0.04, dev), params, cfg10k,
+                   grid10k, device=dev)
+small.run(100)
+torch.save({"1m": {f: getattr(sess.sim, f) for f in FIELDS},
+            "10k": {f: getattr(small.sim, f) for f in FIELDS}}, sys.argv[2])
 '''
 
 CHILD = SCENE + r'''
 from types import SimpleNamespace
 from torch.profiler import ProfilerActivity, profile
-s = SimpleNamespace(**torch.load(sys.argv[2]))
+saved = torch.load(sys.argv[2])
+s = SimpleNamespace(**saved["1m"])
+m = SimpleNamespace(**saved["10k"])
 
 def device_ms(fn, name, reps=50):
     fn()
@@ -98,28 +115,53 @@ def device_ms(fn, name, reps=50):
     return [e.device_time_total for e in prof.key_averages()
             if name in e.key][0] / 1e3 / reps
 
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+def step_ok(got, want, dead):
+    """positions 1e-5, velocities 1e-4 of max |v|, dead slots bitwise"""
+    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
+    return bool(max(float((g - w).abs().max())
+                    for g, w in zip(got[:2], want[:2])) <= 1e-5
+                and max(float((g - w).abs().max())
+                        for g, w in zip(got[2:4], want[2:4]))
+                <= 1e-4 * vscale
+                and all(torch.equal(bits(g[dead]), bits(w[dead]))
+                        for g, w in zip(got, want)))
+
 k1 = lambda: cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ)
 rho = cuda_solver.density_torch(s.xd, s.yd, params, grid, s.occ)
 args = (s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd, params, cfg,
         grid, s.occ)
 k2 = lambda: cuda_solver.forces_integrate_cuda(*args)
-got1, got2 = k1(), k2()
-want2 = cuda_solver.forces_integrate_torch(*args)
+f8 = (s.xd, s.yd, s.vxd, s.vyd, rho, params, grid, s.occ)
+k8 = lambda: cuda_solver.forces_cuda(*f8)
+margs = (m.xd, m.yd, m.vxd, m.vyd, m.ref_xd, m.ref_yd, params, cfg10k,
+         grid10k, m.occ)
+k5 = lambda: cuda_solver.mono_step_cuda(*margs)
+got1, got2, got8, got5 = k1(), k2(), k8(), k5()
 dead = s.xd >= 5e8
-vscale = float(torch.maximum(want2[2].abs().max(), want2[3].abs().max()))
+want8 = cuda_solver.forces_torch(*f8)
+want5 = cuda_solver.mono_step_torch(*margs)
+mlive = m.xd < 5e8
+a_scale = float(torch.maximum(want8[0].abs().max(), want8[1].abs().max()))
 print(json.dumps(dict(
     k1_ms=device_ms(k1, "density_kernel"),
     k2_ms=device_ms(k2, "forces_integrate_kernel"),
+    k8_ms=device_ms(k8, "forces_kernel"),
+    k5_ms=device_ms(k5, "mono_step_kernel"),
     k1_rel=float(((got1 - rho).abs() / rho.abs().clamp_min(1e-30)).max()),
-    k2_ok=bool(max(float((g - w).abs().max())
-                   for g, w in zip(got2[:2], want2[:2])) <= 1e-5
-               and max(float((g - w).abs().max())
-                       for g, w in zip(got2[2:4], want2[2:4]))
-               <= 1e-4 * vscale
-               and all(torch.equal(g[dead], w[dead])
-                       for g, w in zip(got2[:4], want2[:4]))),
+    k2_ok=step_ok(got2[:4], cuda_solver.forces_integrate_torch(*args)[:4],
+                  dead),
+    k8_ok=bool(max(float((g - w).abs().max()) for g, w in zip(got8, want8))
+               <= 1e-5 * a_scale
+               and all(bool((bits(g[dead]) == 0).all()) for g in got8)),
+    k5_ok=step_ok(got5[:5], want5[:5], ~mlive)
+          and float(((got5[4] - want5[4]).abs() / want5[4])[mlive].max())
+          <= 1e-5,
     occupancy={n: _build.occupancy(n, grid.cap)
-               for n in ("density", "forces_integrate")})))
+               for n in ("density", "forces_integrate", "forces",
+                         "mono_step")})))
 '''
 
 
@@ -162,13 +204,16 @@ def main() -> None:
             runs[v].append(r)
             occ = {n: (o["registers"], o["dynamic_smem"], o["blocks_per_sm"],
                        o["local_bytes"]) for n, o in r["occupancy"].items()}
+            ok = all(r[k] for k in ("k2_ok", "k8_ok", "k5_ok")) \
+                and r["k1_rel"] <= 1e-5
             check = ("timing only" if v in TIMING_ONLY else
-                     f"K1 rel {r['k1_rel']:.1e}, K2 matches {r['k2_ok']}")
-            print(f"{v}: K1 {r['k1_ms']:.4f} ms, K2 {r['k2_ms']:.4f} ms; "
-                  f"{check}; (registers, shared bytes, blocks/SM, spill) "
-                  f"{occ}", flush=True)
-            if v not in TIMING_ONLY and (r["k1_rel"] > 1e-5
-                                         or not r["k2_ok"]):
+                     f"K1 rel {r['k1_rel']:.1e}, K2 / K8 / K5 match "
+                     f"{r['k2_ok']} / {r['k8_ok']} / {r['k5_ok']}")
+            print(f"{v}: K1 {r['k1_ms']:.4f} ms, K2 {r['k2_ms']:.4f} ms, "
+                  f"K8 {r['k8_ms']:.4f} ms (1M planes), K5 {r['k5_ms']:.4f} "
+                  f"ms (10k); {check}; (registers, shared bytes, blocks/SM, "
+                  f"spill) {occ}", flush=True)
+            if v not in TIMING_ONLY and not ok:
                 raise RuntimeError(f"{v} disagrees with the twins")
     print(json.dumps(runs))
 
