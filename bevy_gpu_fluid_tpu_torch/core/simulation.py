@@ -69,7 +69,7 @@ class Simulation:
         self.validate_every = validate_every
         self.last_parity = None
         self._steps_since_validate = 0
-        self._overflow = 0         # eager solvers: largest per-step count
+        self._overflow = 0         # eager: largest per-step count; or set
         self._dense_cache = None   # (state object, (xd, yd)): field frames
         self.spec = raster.RasterSpec.fit(
             float(cfg.x_min), float(cfg.x_max), float(cfg.floor_y),
@@ -104,12 +104,16 @@ class Simulation:
 
     @property
     def overflow(self) -> int:
-        """Capacity overflow: the Session's cumulative count on the verlet
-        engine, the largest per-step count seen on the eager solvers, 0 on
-        the golden one (it has no cells)."""
+        """Capacity overflow: on the verlet engine the larger of the set
+        value and the Session's cumulative count, the largest per-step count
+        seen on the eager solvers, 0 on the golden one (it has no cells)."""
         if self._session is not None:
-            return self._session.overflow
+            return max(self._overflow, self._session.overflow)
         return self._overflow
+
+    @overflow.setter
+    def overflow(self, v: int) -> None:
+        self._overflow = v
 
     # ---- scene builders ---------------------------------------------------
     @staticmethod

@@ -151,8 +151,8 @@ __device__ __forceinline__ int scan_candidates(
   return count;
 }
 
-// ---- the halo tile of K1 (density), K2 (forces + integrate), K8 (forces)
-// and K5 (the mono step).
+// ---- the halo tile of K1 (density), K2 (forces + integrate), K8 (forces),
+// K5 (the mono step), K4 (field raster) and K6 (select).
 //
 // A block owns G::kRows cell rows x G::kCols cell columns of one row block,
 // with all cap slot layers; one slot bound kmax (block_kmax, or K5's

@@ -82,6 +82,8 @@ SIGNATURES = {
     "bgf_forces_integrate_occupancy": [_I, _P],
     "bgf_forces_occupancy": [_I, _P],
     "bgf_mono_step_occupancy": [_I, _P],
+    "bgf_field_occupancy": [_I, _P],
+    "bgf_select_occupancy": [_I, _P],
 }
 
 
@@ -188,9 +190,11 @@ def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
 
 def occupancy(name: str, cap: int) -> dict:
     """What the tiled kernel ``name`` ("density", "forces_integrate",
-    "forces" or "mono_step") takes per block at slot capacity ``cap``, from the CUDA runtime:
-    registers per thread, static and dynamic shared memory bytes, the
-    blocks per SM they allow and the local (spill) bytes per thread."""
+    "forces", "mono_step", "field" (K4's halo-tile kernel, P > 4) or
+    "select" (int32 codes)) takes per block at slot capacity ``cap``, from
+    the CUDA runtime: registers per thread, static and dynamic shared
+    memory bytes, the blocks per SM they allow and the local (spill) bytes
+    per thread."""
     out = (ctypes.c_int * 5)()
     rc = getattr(load(), f"bgf_{name}_occupancy")(cap, out)
     if rc != 0:

@@ -493,10 +493,21 @@ class Session:
         self.sim = init_dense(state.to(self.device), self.grid,
                               self._spill_cap, collect_spill=self._recovery)
 
-    def run(self, n_steps: int) -> None:
+    def run(self, n_steps: int, chunk: int | None = None) -> None:
         """Advance n_steps: per step, rebin if the trigger fired, then the
         step's kernels.  Returns as soon as the last step is enqueued
-        (apart from the per-step trigger read)."""
+        (apart from the per-step trigger read).  ``chunk=K`` runs the steps
+        as sequential calls of at most K steps, the reference's API: the
+        same trajectory bit for bit."""
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"chunk={chunk}: want at least 1")
+        done = 0
+        while done < n_steps:
+            k = n_steps - done if chunk is None else min(chunk, n_steps - done)
+            self._run(k)
+            done += k
+
+    def _run(self, n_steps: int) -> None:
         for _ in range(n_steps):
             if self._need(self.sim):
                 self.sim = self._rebin(self.sim)

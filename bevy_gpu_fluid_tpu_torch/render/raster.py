@@ -40,7 +40,6 @@ from ..ops.reslot import block_kmax3, row_kmax, taps
 
 CYAN = (0.0, 1.0, 1.0)
 _f32 = np.float32
-_MAX_KERNEL_P = 4   # K4 is compiled for 1..4 subpixels per cell side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,13 +205,13 @@ def field_density_cuda(xd, yd, params: FluidParams, grid: GridSpec2D,
     """The density field (kernel K4); same contract as ``field_density``.
     ``origin`` overrides the grid's world origin (a slab's origin, for a
     sharded renderer).  The slot-loop bounds are computed from ``xd``, as
-    the reference does.  The kernel takes 1 to 4 subpixels per cell side."""
+    the reference does.  Any ``px_per_cell`` >= 1."""
     dev = _build.check_planes(grid, xd=xd, yd=yd)
     P = px_per_cell
+    if P < 1:
+        raise ValueError(f"px_per_cell={P}: want at least 1")
     if dev.type == "cpu":
         return field_density(xd, yd, params, grid, P, origin)
-    if not 1 <= P <= _MAX_KERNEL_P:
-        raise ValueError(f"px_per_cell={P}: kernel K4 takes 1..{_MAX_KERNEL_P}")
     ox, oy = _origin(grid, origin)
     h2, coeff = _density_consts(params)
     occ = block_kmax3(xd, grid)

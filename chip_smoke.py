@@ -27,10 +27,12 @@ with the validator — then checks them:
    so it steps on K5);
 6. parity with the port's golden model on the 5,041-particle scene at the
    reference bars (also K5);
-7. K4 (field raster, P = 2) on the 1M planes against its twin, timed; then
-   the frame path: ``Session.run_frame(16)`` through ``FramePump(pull=
-   False)`` and ``FramePump(pull=True)``, counters zeroed first, K4 once
-   per frame; ms/frame;
+7. K4 (field raster, P = 2, and P = 5) on the 1M planes against its twin,
+   timed, with its registers, shared memory, blocks per SM and the bytes
+   its tiles stage beside its bound; then the frame path:
+   ``Session.run_frame(16)`` through ``FramePump(pull=False)`` and
+   ``FramePump(pull=True)``, counters zeroed first, K4 once per frame;
+   ms/frame;
 8. K5 (mono step) on the three ``--fps`` grids (10k, 5,041, 1,024
    particles) after 100 steps, against its twin (live slots within the
    tolerances, every output of the dead slots bitwise) and against K1 + K2
@@ -53,8 +55,9 @@ with the validator — then checks them:
 11. K6 (select) and K7 (apply) on 1M planes taken after phase 4 at a step
     where the rebin trigger fires: against their twins bitwise, int32 and
     int8 codes, float32 and int32 payloads; ``reslot_planar`` against K3
-    bitwise; timed, with their bounds, and the planar rebin's kernels
-    (K6 + 5 x K7) against K3's;
+    bitwise; timed, with their bounds (K6's with its registers, shared
+    memory, blocks per SM and staged bytes), and the planar rebin's
+    kernels (K6 + 5 x K7) against K3's;
 12. the planar Session at 1M: a fused and a planar Session from the same
     state, 300 + 600 steps in turns, counters zeroed before each run;
     every DenseSim field bitwise equal at the end, K6 once and K7 five
@@ -95,6 +98,7 @@ N_SIDE = 1000          # bench.py's 1M scene: 1000 x 1000 at spacing 0.04
 WARM_STEPS = 300
 MAIN_STEPS = 600
 FIELD_P = 2            # field raster subpixels per cell side
+FIELD_P_WIDE = 5       # one more K4 call past the old kernel's P = 1..4
 FRAME_SUBSTEPS = 16    # sim steps per frame (real time at dt = 5e-4, 60 Hz)
 FRAMES_1M = 12         # frames per pump mode on the 1M Session
 FPS_PLAN = (10_000, 5_041, 1_024)   # bench.py --fps
@@ -147,25 +151,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernels, reps: int) -> dict:
+def device_ms(fn, kernels, reps: int, tries: int = 3) -> dict:
     """Mean device milliseconds per call of ``fn`` of each CUDA kernel
     named in ``kernels``, from torch.profiler's device trace: the kernels
-    alone, without the wrapper's host work and other launches."""
+    alone, without the wrapper's host work and other launches.  A trace
+    that lacks a kernel's device records (the profiler drops them now and
+    then) is taken again, up to ``tries`` traces."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for kernel in kernels:
-        us = [getattr(e, "device_time_total", 0) or e.cuda_time_total
-              for e in prof.key_averages() if kernel in e.key]
-        check(len(us) == 1 and us[0] > 0,
-              f"profiler shows no device time for {kernel}")
-        out[kernel] = us[0] / 1e3 / reps
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {k: [getattr(e, "device_time_total", 0) or e.cuda_time_total
+                  for e in prof.key_averages() if k in e.key]
+              for k in kernels}
+        if all(len(u) == 1 and u[0] > 0 for u in us.values()):
+            return {k: u[0] / 1e3 / reps for k, u in us.items()}
+    check(False, f"profiler shows no device time for one of {kernels} in "
+          f"{tries} traces: {us}")
 
 
 def kernel_ms(fn, kernel: str, reps: int) -> float:
@@ -199,12 +205,10 @@ def live_taps(xd, per_block, grid) -> float:
     return 9.0 * float((live * row_bounds(per_block, grid)).sum())
 
 
-def tile_taps(xd, occ, grid) -> tuple[float, float]:
-    """Pair taps of K1/K2 on these planes: (needed, executed).  Needed:
-    each live slot x the live slots of its 3x3 cells below its row block's
-    bound (a FAR candidate adds exactly 0).  Executed: each live slot x 9 x
-    the largest of those 9 counts, the tiled kernels' per-slot loop."""
-    live = (xd < 5e8).sum(dim=1)                       # [ny_pad, nx_pad]
+def neighbour_live(xd, occ, grid):
+    """Per cell [ny_pad, nx_pad]: its live slots, and the sum and the
+    largest of its 3x3 cells' live slots below its row block's bound."""
+    live = (xd < 5e8).sum(dim=1)
     km = row_bounds(occ.amax(dim=0), grid)[:, None]
     nsum = torch.zeros_like(live)
     nmax = torch.zeros_like(live)
@@ -213,7 +217,40 @@ def tile_taps(xd, occ, grid) -> tuple[float, float]:
             nb = torch.minimum(torch.roll(live, (-dy, -dx), (0, 1)), km)
             nsum += nb
             nmax = torch.maximum(nmax, nb)
+    return live, nsum, nmax
+
+
+def tile_taps(xd, occ, grid) -> tuple[float, float]:
+    """Pair taps of K1/K2 on these planes: (needed, executed).  Needed:
+    each live slot x the live slots of its 3x3 cells below its row block's
+    bound (a FAR candidate adds exactly 0).  Executed: each live slot x 9 x
+    the largest of those 9 counts, the tiled kernels' per-slot loop."""
+    live, nsum, nmax = neighbour_live(xd, occ, grid)
     return float((live * nsum).sum()), 9.0 * float((live * nmax).sum())
+
+
+def field_taps(xd, occ, grid, P) -> tuple[float, float, float]:
+    """Pixel taps of K4 at P subpixels per cell side: (needed, executed by
+    its tile kernel, executed by its cell kernel).  Needed: each real cell's
+    P^2 pixels x the live slots of its 3x3 cells below its row block's
+    bound.  Tile kernel: P^2 x 9 x the largest of those 9 counts.  Cell
+    kernel: P^2 x 9 x the row block's bound."""
+    _, nsum, nmax = neighbour_live(xd, occ, grid)
+    real = (slice(grid.row0, grid.row0 + grid.ny), slice(1, 1 + grid.nx))
+    km = row_bounds(occ.amax(dim=0), grid)[real[0]]
+    return (P * P * float(nsum[real].sum()),
+            9.0 * P * P * float(nmax[real].sum()),
+            9.0 * P * P * grid.nx * float(km.sum()))
+
+
+def read_slots(per_row, first, last) -> float:
+    """Slots per column a stencil must read: padded row q up to the
+    largest bound ``per_row`` (int [ny_pad], 0 off its targets) of the
+    target rows q-1..q+1 it neighbours, over target rows [first, last)."""
+    v = torch.zeros(per_row.numel() + 2, dtype=per_row.dtype,
+                    device=per_row.device)
+    v[first + 1:last + 1] = per_row[first:last]
+    return float(torch.maximum(torch.maximum(v[:-2], v[1:-1]), v[2:]).sum())
 
 
 def bound_k8(xd, occ, grid) -> dict:
@@ -225,26 +262,38 @@ def bound_k8(xd, occ, grid) -> dict:
                  taps * FORCE_OPS + float((xd < 5e8).sum()) * 3)
 
 
-def tile_shape(source: str, rows: str, cols: str) -> tuple[int, int]:
-    """(rows, cols) of a tiled kernel's tile, read from its source under
-    bevy_gpu_fluid_tpu_torch/csrc: the integers after the two patterns."""
+def csrc_ints(source: str, *patterns: str) -> tuple[int, ...]:
+    """Integer constants of a kernel source under
+    bevy_gpu_fluid_tpu_torch/csrc: the integer each pattern captures (a
+    tiled kernel's tile rows and columns, say)."""
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "bevy_gpu_fluid_tpu_torch", "csrc", source)) as f:
         text = f.read()
-    return tuple(int(re.search(p, text).group(1)) for p in (rows, cols))
+    return tuple(int(re.search(p, text).group(1)) for p in patterns)
 
 
-def staged_bytes(per_block, grid, shape, ring, planes) -> float:
+def staged_bytes(per_block, grid, shape, ring, planes,
+                 real_only=False) -> float:
     """Bytes a tiled kernel reads into shared memory: each interior tile's
     cells and its ring of ``ring`` cells, below its row block's slot bound
     (``per_block`` [nb]), from ``planes`` float32 planes (the window slots
-    past the grid's edge, staged as FAR without a read, excluded)."""
+    past the grid's edge, staged as FAR without a read, excluded);
+    ``real_only``: only the tiles that hold a real cell, as K4 stages."""
     rows, cols = shape
     tb = grid.row_block
-    row_cells = sum(min(rows, tb - r) + 2 * ring for r in range(0, tb, rows))
+    rlo, rhi = (grid.row0, grid.row0 + grid.ny) if real_only else (0, 1 << 30)
+    clo, chi = (1, grid.nx + 1) if real_only else (0, 1 << 30)
     col_cells = sum(min(cols, grid.nx_pad - c) + 2 * ring
-                    for c in range(0, grid.nx_pad, cols))
-    return 4.0 * planes * row_cells * col_cells * float(per_block.sum())
+                    for c in range(0, grid.nx_pad, cols)
+                    if c < chi and c + cols > clo)
+    cells = 0.0
+    for rb, k in enumerate(per_block.tolist()):
+        for r in range(0, tb, rows):
+            top = (rb + 1) * tb + r
+            n = min(rows, tb - r)
+            if top < rhi and top + n > rlo:
+                cells += (n + 2 * ring) * k
+    return 4.0 * planes * col_cells * cells
 
 
 def bits_equal(a, b) -> bool:
@@ -560,38 +609,68 @@ def main() -> None:
 
     # ---- phase 7: K4 and the frame path on the 1M Session ----------------
     s = sess.sim
-    k4 = lambda: raster.field_density_cuda(s.xd, s.yd, params, grid, FIELD_P)
-    t4 = lambda: raster.field_density(s.xd, s.yd, params, grid, FIELD_P)
-    fk, ft = k4(), t4()
-    wet = ft > 0.05 * float(params.rho_0)
-    f_rel = float(((fk - ft).abs() / ft)[wet].max())
-    print(f"# phase 7: K4 field raster P={FIELD_P} at {tuple(fk.shape)}: "
-          f"max rel err on {int(wet.sum())} wet pixels {f_rel:.3e} "
-          f"(<= 1e-5)", flush=True)
-    check(f_rel <= 1e-5, f"K4 field rel err {f_rel}")
-    check(tuple(fk.shape) == (grid.ny * FIELD_P, grid.nx * FIELD_P),
-          f"field shape {tuple(fk.shape)}")
     occ_now = reslot.block_kmax3(s.xd, grid)
-    real_rows = row_bounds(occ_now.amax(dim=0), grid)[
-        grid.row0:grid.row0 + grid.ny]
-    pix_taps = 9.0 * FIELD_P ** 2 * grid.nx * float(real_rows.sum())
-    # x/y slots K4 reads: padded row q up to the largest bound of the real
-    # rows q-1..q+1 it neighbours, over the real columns and their two
-    # wrapped neighbours; it writes nothing per slot.
-    v = torch.zeros(grid.ny_pad + 2, dtype=real_rows.dtype, device=dev)
-    v[grid.row0 + 1:grid.row0 + 1 + grid.ny] = real_rows
-    slots_read = float(torch.maximum(torch.maximum(v[:-2], v[1:-1]),
-                                     v[2:]).sum())
-    xy_b = 2 * 4.0 * min(grid.nx + 2, grid.nx_pad) * slots_read
+    # x/y slots K4 must read: padded row q up to the largest bound of the
+    # real rows q-1..q+1 it neighbours, over the real columns and their two
+    # wrapped neighbours; it writes the field and nothing per slot.  Its
+    # operations: each pixel's taps on live slots (a FAR tap adds 0).
+    xy_b = 2 * 4.0 * min(grid.nx + 2, grid.nx_pad) * read_slots(
+        row_bounds(occ_now.amax(dim=0), grid), grid.row0,
+        grid.row0 + grid.ny)
+    # K4 runs a thread per cell for P <= kCellP, its halo tile above
+    field_occ = _build.occupancy("field", grid.cap)       # the tile kernel's
+    check(field_occ["local_bytes"] == 0, "field spills")
+    *field_tile, cell_p = csrc_ints("field.cu", r"kFieldRows = (\d+);",
+                                    r"kFieldCols = (\d+);",
+                                    r"kCellP = (\d+);")
+    staged = staged_bytes(occ_now.amax(dim=0), grid, field_tile, 1, 2,
+                          real_only=True)
+    k4_rows = {}
+    for P in (FIELD_P, FIELD_P_WIDE):
+        tiled = P > cell_p
+        k4 = lambda: raster.field_density_cuda(s.xd, s.yd, params, grid, P)
+        t4 = lambda: raster.field_density(s.xd, s.yd, params, grid, P)
+        fk, ft = k4(), t4()
+        wet = ft > 0.05 * float(params.rho_0)
+        f_rel = float(((fk - ft).abs() / ft)[wet].max())
+        check(f_rel <= 1e-5, f"K4 field rel err {f_rel} at P = {P}")
+        check(tuple(fk.shape) == (grid.ny * P, grid.nx * P),
+              f"field shape {tuple(fk.shape)} at P = {P}")
+        need_px, tile_px, cell_px = field_taps(s.xd, occ_now, grid, P)
+        run_px = tile_px if tiled else cell_px
+        r = k4_rows[P] = dict(
+            max_abs_err=float((fk - ft).abs().max()),
+            ms=kernel_ms(k4, "field_tile_kernel" if tiled
+                         else "field_cell_kernel", 50),
+            wrapper_ms=cuda_ms(k4, 50), plain_ms=cuda_ms(t4, 3),
+            **bound(xy_b + occ_b + 4.0 * fk.numel(), need_px * DENSITY_OPS))
+        print(f"# phase 7: K4 field raster P={P} at {tuple(fk.shape)}: max "
+              f"rel err on {int(wet.sum())} wet pixels {f_rel:.3e} (<= "
+              f"1e-5), max abs {r['max_abs_err']:.3e}; kernel {r['ms']:.4f} "
+              f"ms (profiler), wrapper {r['wrapper_ms']:.4f}, twin "
+              f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({r['bound_bytes'] / 1e6:.1f} MB: x/y below "
+              f"the row bounds and the field; {need_px / 1e6:.1f}M pixel "
+              f"taps needed, {run_px / 1e6:.1f}M executed by the "
+              f"{'tile' if tiled else 'cell'} kernel, the tile kernel's "
+              f"{tile_px / 1e6:.1f}M; " + (
+                  f"its tiles stage {staged / 1e6:.1f} MB, x, y below kmax, "
+                  f"tile {tuple(field_tile)} + a one-cell ring" if tiled else
+                  "x, y read through L1") + f") on {card}", flush=True)
+        del fk, ft, wet
+    print(f"#   K4's tile kernel (P > {cell_p}) at cap {grid.cap}: "
+          f"{field_occ} (registers per thread, shared memory bytes per "
+          f"block, blocks per SM)", flush=True)
+    wide = {k: v for k, v in k4_rows[FIELD_P_WIDE].items()
+            if k in ("ms", "max_abs_err", "bound_ms", "bound_by")}
+    wide.update(staged_bytes=staged, **field_occ)
     kernels.append(dict(
         name="field_raster", route="cuda",
         source="bevy_gpu_fluid_tpu_torch/csrc/field.cu",
         replaces="bevy_gpu_fluid_tpu/render/raster.py:220",
-        max_abs_err=float((fk - ft).abs().max()),
-        ms=kernel_ms(k4, "field_kernel", 50), wrapper_ms=cuda_ms(k4, 50),
-        plain_ms=cuda_ms(t4, 3), library_ms=None,
-        **bound(xy_b + occ_b + 4.0 * fk.numel(), pix_taps * DENSITY_OPS)))
-    del fk, ft, wet, s
+        library_ms=None, **k4_rows[FIELD_P],
+        **{f"p{FIELD_P_WIDE}_{k}": v for k, v in wide.items()}))
+    del s
     sess.run_frame(FRAME_SUBSTEPS, FIELD_P)
     zero_counts()
     frame_ms = {}
@@ -713,7 +792,7 @@ def main() -> None:
             floor_ms = kernel_ms(lambda: _build.launch(
                 "bgf_mono_floor", dev, grid8.ny_pad, grid8.nx_pad,
                 grid8.row_block), "mono_floor_kernel", 100)
-            mono_tile = tile_shape("mono_step.cu", r"kMonoRows = (\d+);",
+            mono_tile = csrc_ints("mono_step.cu", r"kMonoRows = (\d+);",
                                    r"HaloTile<kMonoRows, (\d+), 2>")
             mono_entry = dict(
                 name="mono_step", route="cuda",
@@ -840,7 +919,7 @@ def main() -> None:
     k8_session = bound_k8(s.xd, s.occ, grid)
     forces_occ = _build.occupancy("forces", grid.cap)
     check(forces_occ["local_bytes"] == 0, "forces spills")
-    k8_tile = tile_shape("bgf_common.cuh", r"kTileRows = (\d+);",
+    k8_tile = csrc_ints("bgf_common.cuh", r"kTileRows = (\d+);",
                          r"kTileCols = (\d+);")
     print(f"#   forces on the Session's planes: kernel "
           f"{kernel_ms(k8, 'forces_kernel', 50):.4f} ms (profiler), bound "
@@ -895,8 +974,18 @@ def main() -> None:
     occ = s.occ
     planes = (s.xd, s.yd, s.vxd, s.vyd, s.idx_d)
     fills = (1e9, 1e9, 0.0, 0.0, -1)
-    cand = 9.0 * grid.nx_pad * float(row_bounds(occ.amax(dim=0), grid).sum())
+    rows_k6 = row_bounds(occ.amax(dim=0), grid)
+    cand = 9.0 * grid.nx_pad * float(rows_k6.sum())
     cnt_b = 4.0 * grid.ny_pad * grid.nx_pad
+    # x/y slots K6 must read: padded row q up to the largest bound of the
+    # interior rows q-1..q+1 it neighbours, over every column (K4's rule)
+    k6_xy_b = 2 * 4.0 * grid.nx_pad * read_slots(
+        rows_k6, grid.row_block, grid.ny_pad - grid.row_block)
+    select_occ = _build.occupancy("select", grid.cap)
+    check(select_occ["local_bytes"] == 0, "select spills")
+    select_tile = csrc_ints("select.cu", r"kSelectRows = (\d+);",
+                             r"kSelectCols = (\d+);")
+    k6_staged = staged_bytes(occ.amax(dim=0), grid, select_tile, 1, 1)
     k6_ms, k7_ms = {}, {}
     for code_dtype in (torch.int32, torch.int8):
         k6 = lambda: reslot.select_cuda(s.xd, s.yd, grid, occ, code_dtype)
@@ -916,7 +1005,7 @@ def main() -> None:
         k6_ms[code_dtype] = dict(
             ms=kernel_ms(k6, "select_kernel", 50), wrapper_ms=cuda_ms(k6, 50),
             plain_ms=cuda_ms(t6, 3),
-            **bound(2 * plane_b + code_b + cnt_b + occ_b, cand * RESLOT_OPS))
+            **bound(k6_xy_b + code_b + cnt_b + occ_b, cand * RESLOT_OPS))
         k7_ms[code_dtype] = dict(
             ms=kernel_ms(k7, "apply_code_kernel", 50),
             wrapper_ms=cuda_ms(k7, 50),
@@ -927,7 +1016,12 @@ def main() -> None:
               f"on the 1M planes ({to_need} steps past phase 4, trigger "
               f"fired): bitwise equal to their twins (5 payload planes); K6 "
               f"{k6_ms[code_dtype]['ms']:.4f} ms (bound "
-              f"{k6_ms[code_dtype]['bound_ms']:.4f}), K7 "
+              f"{k6_ms[code_dtype]['bound_ms']:.4f} by "
+              f"{k6_ms[code_dtype]['bound_by']}: "
+              f"{k6_ms[code_dtype]['bound_bytes'] / 1e6:.1f} MB, x/y below "
+              f"the row bounds, codes, counts; the tiles stage x "
+              f"{k6_staged / 1e6:.1f} MB, tile {select_tile} + a one-cell "
+              f"ring, and y of its live slots), K7 "
               f"{k7_ms[code_dtype]['ms']:.4f} ms (bound "
               f"{k7_ms[code_dtype]['bound_ms']:.4f}) per apply (profiler) "
               f"on {card}", flush=True)
@@ -948,17 +1042,19 @@ def main() -> None:
           f"{planar_dev['apply_code_kernel']:.4f}) vs K3 {k3_dev:.4f} ms "
           f"(profiler); per call {planar_call:.4f} vs {k3_call:.4f} ms (CUDA "
           f"events) on {card}", flush=True)
-    for name, src, line, entry in (
+    print(f"#   K6 at cap {grid.cap}: {select_occ} (registers per thread, "
+          f"shared memory bytes per block, blocks per SM)", flush=True)
+    for name, src, line, entry, extra in (
             ("select", "select.cu", "bevy_gpu_fluid_tpu/ops/reslot.py:393",
-             k6_ms[torch.int32]),
+             k6_ms[torch.int32], dict(staged_bytes=k6_staged, **select_occ)),
             ("apply_code", "apply_code.cu",
-             "bevy_gpu_fluid_tpu/ops/reslot.py:504", k7_ms[torch.int32])):
+             "bevy_gpu_fluid_tpu/ops/reslot.py:504", k7_ms[torch.int32], {})):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"bevy_gpu_fluid_tpu_torch/csrc/{src}", replaces=line,
             max_abs_err=0.0, library_ms=None,
             int8_code_ms=(k6_ms if name == "select" else k7_ms)[
-                torch.int8]["ms"], **entry))
+                torch.int8]["ms"], **entry, **extra))
     del s, planes, got, want, code, cnt, wcode, wcnt, g7, w7
 
     # ---- phase 12: the planar Session at 1M --------------------------------

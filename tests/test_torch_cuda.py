@@ -212,9 +212,49 @@ def test_mono_kernel_on_ragged_crowded_grid(crowded):
     _mono_matches(*crowded)
 
 
-def test_tiled_kernels_on_readmitted_planes(cuda):
-    """K1 and K2 on the planes right after the recovery re-admits a
-    spilled particle (the re-admit writes it at the cell's next rank)."""
+def _field_matches(s, grid, P):
+    """K4 against its twin: 1e-5 relative on wet pixels, 1e-3 absolute on
+    the rest; one launch."""
+    before = raster.field_density_cuda.launches
+    got = raster.field_density_cuda(s.xd, s.yd, PARAMS, grid, P)
+    assert raster.field_density_cuda.launches == before + 1
+    want = raster.field_density(s.xd, s.yd, PARAMS, grid, P)
+    assert got.shape == want.shape == (grid.ny * P, grid.nx * P)
+    wet = want > 0.05 * float(PARAMS.rho_0)
+    assert int(wet.sum()) > 100
+    assert float(((got - want).abs() / want)[wet].max()) <= 1e-5
+    assert float((got - want)[~wet].abs().max()) <= 1e-3
+
+
+def _select_matches(s, grid, code_dtype):
+    """K6 against its twin bitwise, on the sim's own occ as the planar
+    rebin passes it; one launch."""
+    before = reslot.select_cuda.launches
+    code, cnt = reslot.select_cuda(s.xd, s.yd, grid, s.occ, code_dtype)
+    assert reslot.select_cuda.launches == before + 1
+    want_code, want_cnt = reslot.select_torch(s.xd, s.yd, grid, s.occ,
+                                              code_dtype)
+    assert code.dtype == code_dtype and torch.equal(code, want_code)
+    assert torch.equal(cnt, want_cnt) and int(cnt.sum()) > 0
+
+
+def test_field_kernel_on_ragged_crowded_grid(crowded):
+    s, grid, _ = crowded
+    for P in (2, 5):
+        _field_matches(s, grid, P)
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int8])
+def test_select_kernel_on_ragged_crowded_grid(crowded, code_dtype):
+    s, grid, _ = crowded
+    _select_matches(s, grid, code_dtype)
+
+
+@pytest.fixture(scope="module")
+def readmitted(cuda):
+    """The recovery scene's planes right after the rebin that re-admits a
+    spilled particle (the re-admit writes it at the cell's next rank), and
+    its cfg."""
     cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
     sess = vs.Session(bt.init_grid(3, 3, 0.004, cuda), PARAMS, cfg,
                       MONO_GRID, device=cuda)
@@ -227,8 +267,19 @@ def test_tiled_kernels_on_readmitted_planes(cuda):
                 break
         sim = sess._pure_step(sim)
     assert sim.readmitted >= 1
+    return sim, cfg
+
+
+def test_tiled_kernels_on_readmitted_planes(readmitted):
+    """K1 and K2 on the planes right after a re-admission."""
+    sim, cfg = readmitted
     rho = _density_matches(sim, MONO_GRID)
     _forces_integrate_matches(sim, MONO_GRID, cfg, rho)
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int8])
+def test_select_kernel_on_readmitted_planes(readmitted, code_dtype):
+    _select_matches(readmitted[0], MONO_GRID, code_dtype)
 
 
 def test_reslot_kernel_bitwise_twin(moving_sim):
@@ -290,16 +341,9 @@ def mono_sim(cuda):
     return sess.sim
 
 
-@pytest.mark.parametrize("P", [2, 3])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5])
 def test_field_kernel_matches_twin(moving_sim, P):
-    s = moving_sim
-    got = raster.field_density_cuda(s.xd, s.yd, PARAMS, GRID, P)
-    want = raster.field_density(s.xd, s.yd, PARAMS, GRID, P)
-    assert got.shape == want.shape == (GRID.ny * P, GRID.nx * P)
-    wet = want > 0.05 * float(PARAMS.rho_0)
-    assert int(wet.sum()) > 100
-    assert float(((got - want).abs() / want)[wet].max()) <= 1e-5
-    assert float((got - want)[~wet].abs().max()) <= 1e-3
+    _field_matches(moving_sim, GRID, P)
 
 
 def test_mono_kernel_matches_twin(mono_sim):

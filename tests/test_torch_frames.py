@@ -164,7 +164,7 @@ def field_planes():
     return sim, convert.dense_sim_from(_np(sim), "cpu")
 
 
-@pytest.mark.parametrize("P", [2, 3])
+@pytest.mark.parametrize("P", [2, 3, 5])
 def test_field_twin_matches_pallas(field_planes, P):
     sim_j, s = field_planes
     origin = None if P == 3 else (VGRID.origin_x + 0.013,

@@ -13,6 +13,8 @@ over 40 steps; the integer counters (rebins, overflow, lost, readmitted)
 and the final slot assignment are exact.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,23 +38,31 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def slice_runs():
+def _slice_scene():
     """A 24x24 lattice kicked to vx=+2 on a 12-row-block grid (so the JAX
-    side runs density + fused forces, not the mono kernel), 40 steps
-    through both Sessions."""
+    side runs density + fused forces, not the mono kernel): the JAX state,
+    params, cfg and grid."""
     params = bgf.FluidParams.demo()
     cfg = bgf.IntegrateConfig.create(x_min=-1.0, x_max=2.5)
     grid = jvs.default_grid(0.045, -1.0, 2.5, y_max=6.0)
     assert grid.n_row_blocks == 12
     state = bgf.init_grid(24, 24, 0.04)
-    state = state.replace(vx=jnp.full((state.n,), 2.0))
+    return state.replace(vx=jnp.full((state.n,), 2.0)), params, cfg, grid
 
-    sj = jvs.Session(state, params, cfg, grid)
+
+def _port_session(state, params, cfg, grid):
+    return tvs.Session(convert.state_from(_np(state), "cpu"),
+                       convert.params_from(params), convert.cfg_from(cfg),
+                       convert.grid_from(grid), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def slice_runs():
+    """The slice scene, 40 steps through both Sessions."""
+    scene = _slice_scene()
+    sj = jvs.Session(*scene)
     sj.run(40)
-    st = tvs.Session(convert.state_from(_np(state), "cpu"),
-                     convert.params_from(params), convert.cfg_from(cfg),
-                     convert.grid_from(grid), device="cpu")
+    st = _port_session(*scene)
     st.run(40)
     return sj, st
 
@@ -99,6 +109,51 @@ def test_step_from_jax_dense_sim_matches(slice_runs):
                                atol=1e-6)
     np.testing.assert_array_equal(got.idx_d.numpy(), np.asarray(want.idx_d))
     assert got.age == int(want.age) and got.step == int(want.step)
+
+
+@pytest.mark.parametrize("chunk", [7, 64])
+def test_session_run_chunks_bitwise_one_run(slice_runs, chunk):
+    """``run(40, chunk=k)``, the reference's API: sequential calls of at
+    most k steps give ``run(40)``'s DenseSim bit for bit, so the JAX
+    Session's counters and slot assignment too."""
+    sj, st = slice_runs
+    sc = _port_session(*_slice_scene())
+    with pytest.raises(ValueError):
+        sc.run(4, chunk=0)
+    assert sc.sim.step == 0
+    sc.run(40, chunk=chunk)
+    for f in dataclasses.fields(tvs.DenseSim):
+        a, b = getattr(sc.sim, f.name), getattr(st.sim, f.name)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b), f.name
+    assert sc.sim.rebin_count == int(sj.sim.rebin_count) >= 3
+    np.testing.assert_array_equal(sc.sim.idx_d.numpy(),
+                                  np.asarray(sj.sim.idx_d))
+
+
+@pytest.mark.parametrize("solver", ["verlet", "xla"])
+def test_simulation_overflow_setter_matches_jax(solver):
+    """``Simulation.overflow`` can be set; on the verlet engine it reads
+    the larger of the set value and the Session's count, as the
+    reference's does (9 particles in one cell at cap 8: the Session counts
+    one drop at init)."""
+    params = bgf.FluidParams.demo()
+    cfg = bgf.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
+    grid = jvs.default_grid(0.045, -1.0, 2.5, y_max=3.0)
+    if solver == "xla":
+        grid = bgf.GridSpec2D.from_bounds(h=0.045, x_min=-1.0, x_max=2.5,
+                                          y_min=0.0, y_max=3.0)
+    state = bgf.init_grid(3, 3, 0.004)
+    sj = bgf.Simulation(state, params, cfg, grid, solver=solver)
+    st = bt.Simulation(convert.state_from(_np(state), "cpu"),
+                       convert.params_from(params), convert.cfg_from(cfg),
+                       convert.grid_from(grid), solver=solver, device="cpu")
+    start = 1 if solver == "verlet" else 0
+    assert st.overflow == sj.overflow == start
+    for v in (5, 0):
+        sj.overflow = v
+        st.overflow = v
+        assert st.overflow == sj.overflow == max(v, start)
 
 
 @pytest.fixture(scope="module")

@@ -1,16 +1,20 @@
 """The premises of the tiled K1 (density), K2 (forces + integrate), K8
-(forces alone) and K5 (mono step) kernels, pinned on their PyTorch twins
-on the CPU (no GPU, no JAX).
+(forces alone), K5 (mono step), K4 (field raster) and K6 (select) kernels,
+pinned on their PyTorch twins on the CPU (no GPU, no JAX).
 
 The kernels stage a tile of cells in shared memory, read each cell's live
 count off its slots and spend no work on what is exactly zero.  That is
 right only if:
 
 * the live slots of every cell form a prefix of its cap slots, and every
-  dead slot holds FAR in x and y — after the binning, the fused and the
-  planar rebin, and a drop -> suspend -> readmit cycle of the recovery;
+  dead slot holds FAR in x and y, and ``occ`` bounds every cell — after
+  the binning, the fused and the planar rebin, a drop -> suspend ->
+  readmit cycle of the recovery, and on the planes a rebin receives (the
+  DenseSim at a step where the trigger fires);
 * skipping the candidates past a neighbour's count changes no live output
-  of any twin by a single bit (their terms are exactly +-0);
+  of any twin by a single bit (their terms are exactly +-0), no field
+  pixel, and no select code or count (a slot past its cell's count matches
+  no target); a pixel whose 3x3 cells hold no particle is exactly +0;
 * a dead slot's density is coeff x (h^6 added n times), n the FAR
   candidates among its 3x3 cells below the slot bound (the row block's for
   K1, K5's kmax_d for K5), so the kernel can write it from the counts
@@ -21,7 +25,8 @@ right only if:
 The scenes are small: the kicked 24 x 24 block of tests/test_torch_cuda.py
 (on the 12-row-block grid, and on a 7-row-block grid where the Session
 steps on K5) and the recovery scene of tests/test_torch_session.py (9
-particles in one cell at cap 8).  Every comparison is exact, on the float
+particles in one cell at cap 8), each of the two also stepped on to where
+the rebin trigger fires.  Every comparison is exact, on the float
 bits (``.view(torch.int32)``, which tells -0 from +0).
 """
 
@@ -34,8 +39,10 @@ import torch
 import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+from bevy_gpu_fluid_tpu_torch.ops import reslot
 from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
 from bevy_gpu_fluid_tpu_torch.ops.reslot import block_kmax3, row_kmax, taps
+from bevy_gpu_fluid_tpu_torch.render import raster
 
 torch.set_num_threads(1)
 
@@ -44,7 +51,8 @@ CFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5)
 GRID = vs.default_grid(0.045, -1.0, 2.5, y_max=6.0)
 RCFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
 RGRID = vs.default_grid(0.045, -1.0, 2.5, y_max=3.0)
-SCENES = ("init", "fused_rebin", "planar_rebin", "readmitted", "mono")
+SCENES = ("init", "fused_rebin", "planar_rebin", "readmitted", "mono",
+          "need", "need_readmitted")
 
 
 def _kicked(steps, grid=GRID):
@@ -65,11 +73,22 @@ def _shifted(sim, seed):
         sim, xd=torch.where(sim.xd < FAR * 0.5, sim.xd + shift, sim.xd))
 
 
+def _to_need(sess, sim):
+    """The DenseSim stepped on until the rebin trigger fires: the planes
+    the next rebin (K3, or K6 + K7) receives."""
+    for _ in range(200):
+        if sess._need(sim):
+            return sim
+        sim = sess._pure_step(sim)
+    raise AssertionError("the rebin trigger never fired")
+
+
 @pytest.fixture(scope="module")
 def scenes():
     """name -> (DenseSim, grid, cfg): the planes each premise is held on."""
     out = {"init": (_kicked(0).sim, GRID, CFG)}
     sess = _kicked(12)
+    out["need"] = (_to_need(sess, sess._pure_step(sess.sim)), GRID, CFG)
     for name, planar in (("fused_rebin", False), ("planar_rebin", True)):
         rebin = vs.make_step_parts(PARAMS, CFG, GRID, n=sess.n,
                                    planar=planar)[1]
@@ -89,6 +108,8 @@ def scenes():
         sim = rsess._pure_step(sim)
     assert sim.readmitted >= 1
     out["readmitted"] = (sim, RGRID, RCFG)
+    out["need_readmitted"] = (_to_need(rsess, rsess._pure_step(sim)), RGRID,
+                              RCFG)
     assert RGRID.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
     out["mono"] = (_kicked(12, RGRID).sim, RGRID, CFG)   # stepped on K5
     return out
@@ -112,6 +133,14 @@ def test_live_slots_are_a_prefix_and_dead_slots_far(scenes, name):
     assert not bool((live[:, 1:] & ~live[:, :-1]).any())
     assert bool((sim.xd[~live] == FAR).all() & (sim.yd[~live] == FAR).all())
     assert torch.equal(sim.occ, _occ(sim, scenes[name][1]))
+    # occ bounds every cell of the three rows each row block reads
+    grid = scenes[name][1]
+    kmax = row_kmax(sim.occ, grid)[:, 0]                  # [ny_pad, 1]
+    count = live.sum(dim=1)                               # [ny_pad, nx_pad]
+    tb = grid.row_block
+    for dy in (-1, 0, 1):
+        nb = torch.roll(count, -dy, 0)
+        assert bool((nb[tb:-tb] <= kmax[tb:-tb]).all())
 
 
 def _masked_density(xd, yd, grid, occ):
@@ -310,3 +339,93 @@ def test_mono_twin_dead_rho_from_counts(scenes, name):
     assert torch.equal(_bits(got), _bits(expect))
     assert float(rho[tb:-tb][dead].max()) > 0
     assert bool((_bits(rho[:tb]) == 0).all() & (_bits(rho[-tb:]) == 0).all())
+
+
+def _bounded_counts(sim, grid, occ):
+    """Each cell's live count below its row's slot bound (the tile kernels'
+    staged count: the live prefix under kmax), int64 [ny_pad, nx_pad]."""
+    live = _live(sim).to(torch.int64)
+    prefix = torch.cumprod(live, dim=1).sum(dim=1)
+    return torch.minimum(prefix, row_kmax(occ, grid)[:, 0])
+
+
+def _largest_of_nine(count):
+    """Per cell, the largest count of its 3x3 cells (columns wrap, as the
+    taps do)."""
+    out = torch.zeros_like(count)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            out = torch.maximum(out, torch.roll(count, (-dy, -dx), (0, 1)))
+    return out
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int8])
+@pytest.mark.parametrize("name", SCENES)
+def test_select_twin_unchanged_at_each_targets_largest_count(scenes, name,
+                                                             code_dtype):
+    """K6's tiled scan: each target stops at the largest count of its 9
+    cells and compares the candidates' clipped cells with its own; the
+    codes and counts are select_torch's (the sim's own occ, as the planar
+    rebin passes it)."""
+    sim, grid, _ = scenes[name]
+    occ = sim.occ
+    want_code, want_cnt = reslot.select_torch(sim.xd, sim.yd, grid, occ,
+                                              code_dtype)
+    tgt_cx, tgt_cy, kiota = reslot._targets(grid, sim.xd.device)
+    ccx, ccy = reslot._cell_of(sim.xd, sim.yd, grid, _live(sim))
+    stop = _largest_of_nine(_bounded_counts(sim, grid, occ))[:, None, :]
+    code = torch.full(sim.xd.shape, -1, dtype=torch.int32)
+    cnt = torch.zeros_like(stop)
+    for kj in range(int(stop.max())):
+        views = taps((ccx, ccy), kj)
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                cx, cy = next(views)
+                match = (cx == tgt_cx) & (cy == tgt_cy) & (kj < stop)
+                code = torch.where(match & (cnt == kiota),
+                                   reslot.code_of(kj, dx, dy), code)
+                cnt = cnt + match
+    assert torch.equal(code.to(code_dtype), want_code)
+    assert torch.equal(cnt[:, 0, :].to(torch.int32), want_cnt)
+    assert 0 < int(want_cnt.sum()) <= int(_live(sim).sum())
+
+
+def _masked_field(sim, grid, P):
+    """The K4 twin with the FAR candidates skipped, not added as +0."""
+    h2, coeff = cuda_solver._density_consts(PARAMS)
+    px, py = raster._pixel_coords(grid, P, None, sim.xd.device)
+    kmax = row_kmax(block_kmax3(sim.xd, grid), grid)
+    live = _live(sim).float()
+    rho = torch.zeros(torch.broadcast_shapes(px.shape, py.shape))
+    for kj in range(int(kmax.max())):
+        for rx, ry, rl in taps((sim.xd, sim.yd, live), kj):
+            ddx = px - rx
+            ddy = py - ry
+            d = torch.clamp_min(float(h2) - (ddx * ddx + ddy * ddy), 0.0)
+            rho = torch.where((kj < kmax) & (rl > 0), rho + d * d * d, rho)
+    real = (rho * float(coeff))[grid.row0:grid.row0 + grid.ny, :,
+                                1:1 + grid.nx]
+    return real.reshape(grid.ny, P, P, grid.nx).permute(0, 1, 3, 2).reshape(
+        grid.ny * P, grid.nx * P)
+
+
+@pytest.mark.parametrize("P", [2, 5])
+@pytest.mark.parametrize("name", SCENES)
+def test_field_twin_unchanged_without_far_taps(scenes, name, P):
+    """K4's tiled pixels: the FAR taps skipped give the twin's field bit
+    for bit, and every pixel of a cell whose 3x3 cells hold no particle
+    is exactly +0 (the kernel writes it with no taps)."""
+    sim, grid, _ = scenes[name]
+    want = raster.field_density(sim.xd, sim.yd, PARAMS, grid, P)
+    got = _masked_field(sim, grid, P)
+    assert torch.equal(_bits(got), _bits(want))
+    near = torch.zeros(grid.ny_pad, grid.nx_pad, dtype=torch.int64)
+    count = _live(sim).sum(dim=1)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            near += torch.roll(count, (-dy, -dx), (0, 1))
+    empty = (near[grid.row0:grid.row0 + grid.ny, 1:1 + grid.nx] == 0)
+    empty = empty.repeat_interleave(P, 0).repeat_interleave(P, 1)
+    assert bool(empty.any()) and not bool(empty.all())
+    assert bool((_bits(want[empty]) == 0).all())
+    assert float(want[~empty].max()) > 0

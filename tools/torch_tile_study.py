@@ -1,7 +1,8 @@
 """The tiled CUDA kernels K1 (density), K2 (forces + integrate), K8 (forces
-alone) and K5 (mono step) against variants of their design, on one NVIDIA
-GPU: K1, K2 and K8 at the 1M-particle Session's planes (bench.py's dam
-break after 300 steps, as chip_smoke.py phase 3), K5 at the 10k grid of
+alone), K5 (mono step), K4 (field raster) and K6 (select) against variants
+of their design, on one NVIDIA GPU: K1, K2, K8, K4 (P = 2 and 5) and K6
+(int32 codes) at the 1M-particle Session's planes (bench.py's dam break
+after 300 steps, as chip_smoke.py phase 3), K5 at the 10k grid of
 ``bench.py --fps`` after 100 steps (as chip_smoke.py phase 8).
 
     python3 tools/torch_tile_study.py [variant ...]     # default: all
@@ -14,10 +15,15 @@ its own copy of the package there and run in its own process.  It prints,
 per variant: each kernel's device time (torch.profiler, 50 calls), their
 registers, shared memory and blocks per SM, and, for the variants that
 compute the same function, K1's max relative error against its twin on
-every slot and whether K2, K8 and K5 match their twins (K2 and K5:
-positions 1e-5, velocities 1e-4 of max |v|, dead slots bitwise; K5 rho
-1e-5 relative on live slots; K8 1e-5 of max |a|, dead slots +0).
-``no_taps`` and ``no_dead`` drop work and are timings only: what the tap
+every slot and whether K2, K8, K5, K4 and K6 match their twins (K2 and
+K5: positions 1e-5, velocities 1e-4 of max |v|, dead slots bitwise; K5
+rho 1e-5 relative on live slots; K8 1e-5 of max |a|, dead slots +0; K4
+1e-5 relative on wet pixels; K6 bitwise).
+K4 runs its thread-per-cell kernel for P <= 4 and its halo-tile kernel
+for larger P: the ``field_*`` tile variants move only the P = 5 reading,
+and ``field_tile_only`` runs the tile kernel at every P.
+``no_taps`` and ``no_dead`` (and ``field_no_taps``, ``select_no_scan``,
+``select_no_write``) drop work and are timings only: what the tap
 loops and the dead-slot passes cost.  ``skip_far_taps`` (a branch per
 candidate past its cell's count) is K1's alone: K2's, K8's and K5's force
 taps share ``bgf::tile_accel``, which loops to the largest count.  The
@@ -45,6 +51,9 @@ _SKIP = ("        for (int dy = 0; dy < 3; ++dy)\n"
 _TAPS = "  for (int kj = 0; kj < kb; ++kj) {"
 _DEAD = "    if (s >= cnt[(tr + "
 _STENCIL = ("density.cu", "forces_integrate.cu", "forces.cu", "mono_step.cu")
+_K4_TAPS = ("      for (int kj = 0; kj < kb; ++kj) {\n#pragma unroll\n"
+            "        for")                 # K4's halo-tile taps
+_K6_WRITE = "  for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {\n"
 
 # variant -> [(file under csrc/, text, replacement)]
 VARIANTS = {
@@ -57,6 +66,20 @@ VARIANTS = {
     "mono_1x28": [("mono_step.cu", "kMonoRows = 2;", "kMonoRows = 1;")],
     "mono_4x28": [("mono_step.cu", "kMonoRows = 2;", "kMonoRows = 4;")],
     "mono_8x28": [("mono_step.cu", "kMonoRows = 2;", "kMonoRows = 8;")],
+    "field_2x30": [("field.cu", "kFieldRows = 4;", "kFieldRows = 2;")],
+    "field_8x30": [("field.cu", "kFieldRows = 4;", "kFieldRows = 8;")],
+    "field_256_threads": [("field.cu", "kBlock = 128;", "kBlock = 256;")],
+    "field_tile_only": [("field.cu", "kCellP = 4;", "kCellP = 0;")],
+    "field_8x30_256": [("field.cu", "kFieldRows = 4;", "kFieldRows = 8;"),
+                       ("field.cu", "kBlock = 128;", "kBlock = 256;")],
+    "field_no_taps": [("field.cu", _K4_TAPS, _K4_TAPS.replace("kj < kb",
+                                                              "kj < 0"))],
+    "select_no_scan": [("select.cu", _TAPS, _TAPS.replace("kj < kb",
+                                                          "kj < 0"))],
+    "select_no_write": [("select.cu", _K6_WRITE, "  if (false)\n" + _K6_WRITE)],
+    "select_2x30": [("select.cu", "kSelectRows = 4;", "kSelectRows = 2;")],
+    "select_8x30": [("select.cu", "kSelectRows = 4;", "kSelectRows = 8;")],
+    "select_256_threads": [("select.cu", "kBlock = 128;", "kBlock = 256;")],
     "skip_far_taps": [           # a branch per candidate past its count
         ("density.cu", _K1_TAP, _SKIP + "          const float2 w")],
     "no_taps": [(f, _TAPS, _TAPS.replace("kj < kb", "kj < 0"))
@@ -64,7 +87,8 @@ VARIANTS = {
     "no_dead": [(f, _DEAD, _DEAD.replace("if (", "if (false && "))
                 for f in _STENCIL],
 }
-TIMING_ONLY = ("no_taps", "no_dead")
+TIMING_ONLY = ("no_taps", "no_dead", "field_no_taps", "select_no_scan",
+               "select_no_write")
 
 # the scene, shared by the planes run and every variant
 SCENE = r'''
@@ -75,6 +99,8 @@ import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.kernels import _build
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+from bevy_gpu_fluid_tpu_torch.ops import reslot
+from bevy_gpu_fluid_tpu_torch.render import raster
 assert bt.__file__.startswith(sys.argv[1]), bt.__file__
 dev = torch.device("cuda")
 params = bt.FluidParams.demo()
@@ -145,11 +171,24 @@ want8 = cuda_solver.forces_torch(*f8)
 want5 = cuda_solver.mono_step_torch(*margs)
 mlive = m.xd < 5e8
 a_scale = float(torch.maximum(want8[0].abs().max(), want8[1].abs().max()))
+k4 = {P: (lambda P=P: raster.field_density_cuda(s.xd, s.yd, params, grid, P))
+      for P in (2, 5)}
+
+def field_rel(P):
+    want = raster.field_density(s.xd, s.yd, params, grid, P)
+    wet = want > 0.05 * float(params.rho_0)
+    return float(((k4[P]() - want).abs() / want)[wet].max())
+
+k6 = lambda: reslot.select_cuda(s.xd, s.yd, grid, s.occ)
+want6 = reslot.select_torch(s.xd, s.yd, grid, s.occ)
 print(json.dumps(dict(
     k1_ms=device_ms(k1, "density_kernel"),
     k2_ms=device_ms(k2, "forces_integrate_kernel"),
     k8_ms=device_ms(k8, "forces_kernel"),
     k5_ms=device_ms(k5, "mono_step_kernel"),
+    k4_ms=device_ms(k4[2], "field_"),
+    k4p5_ms=device_ms(k4[5], "field_"),
+    k6_ms=device_ms(k6, "select_kernel"),
     k1_rel=float(((got1 - rho).abs() / rho.abs().clamp_min(1e-30)).max()),
     k2_ok=step_ok(got2[:4], cuda_solver.forces_integrate_torch(*args)[:4],
                   dead),
@@ -159,9 +198,11 @@ print(json.dumps(dict(
     k5_ok=step_ok(got5[:5], want5[:5], ~mlive)
           and float(((got5[4] - want5[4]).abs() / want5[4])[mlive].max())
           <= 1e-5,
+    k4_ok=max(field_rel(2), field_rel(5)) <= 1e-5,
+    k6_ok=all(torch.equal(g, w) for g, w in zip(k6(), want6)),
     occupancy={n: _build.occupancy(n, grid.cap)
                for n in ("density", "forces_integrate", "forces",
-                         "mono_step")})))
+                         "mono_step", "field", "select")})))
 '''
 
 
@@ -204,15 +245,18 @@ def main() -> None:
             runs[v].append(r)
             occ = {n: (o["registers"], o["dynamic_smem"], o["blocks_per_sm"],
                        o["local_bytes"]) for n, o in r["occupancy"].items()}
-            ok = all(r[k] for k in ("k2_ok", "k8_ok", "k5_ok")) \
-                and r["k1_rel"] <= 1e-5
+            ok = all(r[k] for k in ("k2_ok", "k8_ok", "k5_ok", "k4_ok",
+                                    "k6_ok")) and r["k1_rel"] <= 1e-5
             check = ("timing only" if v in TIMING_ONLY else
-                     f"K1 rel {r['k1_rel']:.1e}, K2 / K8 / K5 match "
-                     f"{r['k2_ok']} / {r['k8_ok']} / {r['k5_ok']}")
+                     f"K1 rel {r['k1_rel']:.1e}, K2 / K8 / K5 / K4 / K6 "
+                     f"match {r['k2_ok']} / {r['k8_ok']} / {r['k5_ok']} / "
+                     f"{r['k4_ok']} / {r['k6_ok']}")
             print(f"{v}: K1 {r['k1_ms']:.4f} ms, K2 {r['k2_ms']:.4f} ms, "
-                  f"K8 {r['k8_ms']:.4f} ms (1M planes), K5 {r['k5_ms']:.4f} "
-                  f"ms (10k); {check}; (registers, shared bytes, blocks/SM, "
-                  f"spill) {occ}", flush=True)
+                  f"K8 {r['k8_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms (P = 2; "
+                  f"P = 5 {r['k4p5_ms']:.4f}), K6 {r['k6_ms']:.4f} ms (1M "
+                  f"planes), K5 {r['k5_ms']:.4f} ms (10k); {check}; "
+                  f"(registers, shared bytes, blocks/SM, spill) {occ}",
+                  flush=True)
             if v not in TIMING_ONLY and not ok:
                 raise RuntimeError(f"{v} disagrees with the twins")
     print(json.dumps(runs))
