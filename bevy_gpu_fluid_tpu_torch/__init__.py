@@ -10,11 +10,11 @@ This package imports torch and numpy only.
 
 from .core.params import FluidParams, IntegrateConfig, GridSpec2D, GRAVITY_Y
 from .core.state import (FluidState, from_positions, init_grid, demo_block_5k,
-                         make_state)
+                         make_state, lattice_gen)
 from .core.simulation import Simulation
 
 __all__ = [
     "FluidParams", "IntegrateConfig", "GridSpec2D", "GRAVITY_Y",
     "FluidState", "from_positions", "init_grid", "demo_block_5k",
-    "make_state", "Simulation",
+    "make_state", "lattice_gen", "Simulation",
 ]

@@ -22,8 +22,9 @@ simulation's own stencils (K1 + K8 for ``"verlet"`` and ``"pallas"``);
 ``mode="fields"`` checks the stored rho and p.  With ``validate_every=K``,
 ``run`` runs it once K steps have passed since the last check and keeps the
 report in ``last_parity``; ``ParityError`` is raised on a violation.
-``save``/``load`` (checkpoints) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``save``/``load`` checkpoint the per-particle state with params and cfg
+(utils/checkpoint.py, the reference's npz format); ``load`` takes the
+artifact's physics when it carries them and rebuilds the solver.
 
 Frame modes: ``"density"``/``"const"`` are per-particle splats at the
 ``raster_width``-wide ``spec``; ``"field"``/``"field_const"`` are the
@@ -46,11 +47,6 @@ from ..utils import validator
 from .params import FluidParams, GridSpec2D, IntegrateConfig
 from .state import FluidState, init_grid
 
-_NOT_PORTED = {
-    "save": "checkpoints are not ported (ROADMAP B4)",
-}
-
-
 class Simulation:
     """Stateful convenience wrapper over the solvers."""
 
@@ -70,18 +66,28 @@ class Simulation:
         self.last_parity = None
         self._steps_since_validate = 0
         self._overflow = 0         # eager: largest per-step count; or set
+        self._y_view_max = y_view_max
+        self._raster_width = raster_width
+        self._state = state.to(self.device)
+        self._rebuild()
+
+    def _rebuild(self) -> None:
+        """(Re)build the raster spec and, for the verlet solver, the
+        resident Session from the CURRENT state, params, cfg and grid:
+        the constructor's, and ``load``'s when the artifact brings its own
+        physics."""
+        cfg, grid = self.cfg, self.grid
         self._dense_cache = None   # (state object, (xd, yd)): field frames
         self.spec = raster.RasterSpec.fit(
             float(cfg.x_min), float(cfg.x_max), float(cfg.floor_y),
-            y_view_max if y_view_max is not None
+            self._y_view_max if self._y_view_max is not None
             else float(cfg.floor_y) + grid.ny * grid.cell_size,
-            width=raster_width)
-        self._state = state.to(self.device)
+            width=self._raster_width)
         self._session = None
         self._dirty = False
-        if solver == "verlet":
-            self._session = verlet_solver.Session(self._state, params, cfg,
-                                                  grid, device=self.device)
+        if self.solver == "verlet":
+            self._session = verlet_solver.Session(
+                self._state, self.params, cfg, grid, device=self.device)
             self._dirty = True   # the dense re-bin reorders the f32 sums
 
     # ---- state / diagnostics --------------------------------------------
@@ -202,10 +208,25 @@ class Simulation:
             raise_on_fail=raise_on_fail)
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(f"save: {_NOT_PORTED['save']}")
+        """Write the per-particle state with params and cfg (an npz in the
+        reference's format; ``Session.save`` keeps the resident state)."""
+        from ..utils import checkpoint
+        checkpoint.save(path, self.state, self.params, self.cfg)
 
     def load(self, path: str) -> None:
-        raise NotImplementedError(f"load: {_NOT_PORTED['save']}")
+        """Restore a checkpoint.  Params and cfg the artifact carries
+        REPLACE the simulation's and the solver is rebuilt, so a run saved
+        under other physics goes on with that physics; the binning grid,
+        static geometry, is kept (a new box wants a new Simulation)."""
+        from ..utils import checkpoint
+        state, params, cfg = checkpoint.load(path, self.device)
+        if params is None and cfg is None:
+            self.state = state           # the setter re-seeds the Session
+            return
+        self.params = params if params is not None else self.params
+        self.cfg = cfg if cfg is not None else self.cfg
+        self._state = state
+        self._rebuild()
 
     def kick(self, x: float, y: float, dir_x: float, dir_y: float,
              impulse: float | None = None) -> None:

@@ -68,6 +68,27 @@ def init_grid(n_x: int, n_y: int, spacing: float, device) -> FluidState:
                       rho=z.clone(), p=z.clone())
 
 
+def lattice_gen(n_x: int, spacing: float, device):
+    """Chunk generator of the ``init_grid(n_x, n_y, spacing)`` lattice that
+    never materializes it: maps an int tensor of GLOBAL particle indices
+    (on any device) to that chunk's (x, y, vx, vy) float32 tensors on
+    ``device``, at rest, x-fastest order, with ``init_grid``'s float32
+    arithmetic (index * float32(spacing)).  For
+    ``verlet_solver.init_dense_gen`` / ``Session.from_generator``: at very
+    large N the four [N] planes of a FluidState are a real share of the
+    card's memory."""
+    sp = torch.tensor(spacing, dtype=torch.float32)
+
+    def gen(gi: torch.Tensor):
+        gi = gi.to(device)
+        x = (gi % n_x).to(torch.float32) * sp.to(device)
+        y = torch.div(gi, n_x, rounding_mode="floor").to(torch.float32) \
+            * sp.to(device)
+        z = torch.zeros_like(x)
+        return x, y, z, z.clone()
+    return gen
+
+
 def demo_block_5k(device) -> tuple[FluidState, FluidParams]:
     """The 71x71 = 5,041 particle dam-break block."""
     return init_grid(71, 71, 0.04, device), FluidParams.demo()

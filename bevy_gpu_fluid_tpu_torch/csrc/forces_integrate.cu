@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel `_forces_integrate_kernel` /
 // `forces_integrate_pallas` (bevy_gpu_fluid_tpu/models/pallas_solver.py:400,
-// :961), ref-based trigger, no lane window.  Per live slot i:
+// :961), both triggers, no lane window.  Per live slot i:
 //   p = k * max(rho - rho0, 0), 1/rho = 1 / max(rho, 1e-12)   (EOS in-kernel)
 //   inv_r = rsqrt(r^2 + EPS^2), hr = max(h - r^2 * inv_r, 0)  (softened gate)
 //   a_i = sum_j  m_half (p_i + p_j) / rho_j * spiky_c hr^2 inv_r * (r_i - r_j)
@@ -11,7 +11,13 @@
 // v += (a + g) dt, x += v dt, the floor/wall clamp with bounce, all masked
 // to live slots (x < 1e8) so FAR stays FAR; and the max over live slots of
 // |x_new - x_ref|^2, the next step's rebin trigger.  Accelerations never
-// reach device memory.
+// reach device memory.  The REFLESS variant (kRefless, the memory-ceiling
+// trigger; pallas_solver.py:626-632) measures against the slot's own old
+// position instead, which the thread already holds: it reads no reference
+// plane (the launcher takes null reference pointers), so its bytes are two
+// planes fewer, and the driver sums the square roots of the step maxima.
+// The squared distance is rounded term by term (no FMA contraction), so the
+// max equals the one a PyTorch pass over the kernel's own outputs takes.
 //
 // What bounds it on the H100.  The bytes bound is 11 planes (7 read, 4
 // written): 157 MB at the 1M-particle shapes [696, 8, 640], 0.047 ms at
@@ -57,6 +63,7 @@ int forces_integrate_smem(int cap) {
          bgf::kWinRows * bgf::kWinCols * 4 + bgf::kTileCells * cap * 4 + 4;
 }
 
+template <bool kRefless>
 __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -116,9 +123,9 @@ __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
     ovx[g] = nvx;
     ovy[g] = nvy;
     if (live) {
-      const float drx = nx - ref_x[g];
-      const float dry = ny - ref_y[g];
-      d2 = fmaxf(d2, drx * drx + dry * dry);
+      const float drx = nx - (kRefless ? own.x : ref_x[g]);
+      const float dry = ny - (kRefless ? own.y : ref_y[g]);
+      d2 = fmaxf(d2, __fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)));
     }
   }
   for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {
@@ -139,16 +146,17 @@ extern "C" int bgf_forces_integrate(
     const float* x, const float* y, const float* vx, const float* vy,
     const float* rho, const float* ref_x, const float* ref_y, const int* occ,
     float* ox, float* oy, float* ovx, float* ovy, float* disp, int ny_pad,
-    int cap, int nx_pad, int tb, int nb, float h, float m_half,
+    int cap, int nx_pad, int tb, int nb, int refless, float h, float m_half,
     float spiky_c, float visc_mc, float rho0, float k, float dt, float x_min,
     float x_max, float bounce, float floor_y, cudaStream_t stream) {
+  const auto kernel = refless ? forces_integrate_kernel<true>
+                              : forces_integrate_kernel<false>;
   const int smem = forces_integrate_smem(cap);
-  cudaError_t err = bgf::allow_smem(forces_integrate_kernel, smem);
+  cudaError_t err = bgf::allow_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(disp, 0, sizeof(float), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  forces_integrate_kernel<<<bgf::tiles_for(ny_pad, nx_pad, tb),
-                            kBlock, smem, stream>>>(
+  kernel<<<bgf::tiles_for(ny_pad, nx_pad, tb), kBlock, smem, stream>>>(
       x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy,
       reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb,
       bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k,
@@ -159,6 +167,12 @@ extern "C" int bgf_forces_integrate(
 // Registers, static and dynamic shared memory per block, blocks per SM and
 // spill bytes of the kernel at slot capacity cap, into out[0..4].
 extern "C" int bgf_forces_integrate_occupancy(int cap, int* out) {
-  return bgf::report_occupancy(forces_integrate_kernel, kBlock,
+  return bgf::report_occupancy(forces_integrate_kernel<false>, kBlock,
+                               forces_integrate_smem(cap), out);
+}
+
+// The same for the refless variant.
+extern "C" int bgf_forces_integrate_refless_occupancy(int cap, int* out) {
+  return bgf::report_occupancy(forces_integrate_kernel<true>, kBlock,
                                forces_integrate_smem(cap), out);
 }

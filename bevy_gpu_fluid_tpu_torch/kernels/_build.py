@@ -50,10 +50,10 @@ SIGNATURES = {
     # x, y, occ, rho | ny_pad, cap, nx_pad, tb, nb | h2, coeff | stream
     "bgf_density": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
     # x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy, disp
-    # | ny_pad, cap, nx_pad, tb, nb
+    # | ny_pad, cap, nx_pad, tb, nb, refless
     # | h, m_half, spiky_c, visc_mc, rho0, k, dt, x_min, x_max, bounce,
     #   floor_y | stream
-    "bgf_forces_integrate": [_P] * 13 + [_I] * 5 + [_F] * 11 + [_P],
+    "bgf_forces_integrate": [_P] * 13 + [_I] * 6 + [_F] * 11 + [_P],
     # x, y, vx, vy, idx, occ, ox, oy, ovx, ovy, oidx, cnt
     # | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny | origin_x, origin_y, inv
     # | stream
@@ -80,6 +80,7 @@ SIGNATURES = {
     # cap, out int32[5] (no stream: a query, not a launch)
     "bgf_density_occupancy": [_I, _P],
     "bgf_forces_integrate_occupancy": [_I, _P],
+    "bgf_forces_integrate_refless_occupancy": [_I, _P],
     "bgf_forces_occupancy": [_I, _P],
     "bgf_mono_step_occupancy": [_I, _P],
     "bgf_field_occupancy": [_I, _P],
@@ -190,7 +191,7 @@ def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
 
 def occupancy(name: str, cap: int) -> dict:
     """What the tiled kernel ``name`` ("density", "forces_integrate",
-    "forces", "mono_step", "field" (K4's halo-tile kernel, P > 4) or
+    "forces_integrate_refless", "forces", "mono_step", "field" (K4's halo-tile kernel, P > 4) or
     "select" (int32 codes)) takes per block at slot capacity ``cap``, from
     the CUDA runtime: registers per thread, static and dynamic shared
     memory bytes, the blocks per SM they allow and the local (spill) bytes

@@ -6,10 +6,13 @@ Port of ``bevy_gpu_fluid_tpu/models/pallas_solver.py`` (the TPU Pallas
 kernels and its eager ``step``/``multi_step``):
 
 * K1 ``density_cuda`` (``csrc/density.cu``) replaces ``_density_kernel`` /
-  ``density_pallas`` (pallas_solver.py:224, :854);
+  ``density_pallas`` (pallas_solver.py:224, :854), ``out=`` its
+  ``rho_out`` (the new rho written into a dead plane);
 * K2 ``forces_integrate_cuda`` (``csrc/forces_integrate.cu``) replaces
   ``_forces_integrate_kernel`` / ``forces_integrate_pallas``
-  (pallas_solver.py:400, :961), ref-based trigger;
+  (pallas_solver.py:400, :961), both triggers: ref-based, and
+  ``refless=True`` (the step's own largest displacement, no reference
+  planes read);
 * K5 ``mono_step_cuda`` (``csrc/mono_step.cu``) replaces
   ``_mono_step_kernel`` / ``mono_step_pallas`` (pallas_solver.py:657,
   :1044): K1 + EOS + K2 in one launch, for grids under
@@ -53,7 +56,7 @@ from ..core.params import FluidParams, GRAVITY_Y, GridSpec2D, IntegrateConfig
 from ..kernels import _build
 from ..ops.binning import FAR
 from ..ops.kernels import PI
-from ..ops.reslot import block_kmax3, row_kmax, taps
+from ..ops.reslot import block_kmax3, row_kmax, slab_rows, taps
 from . import grid_solver
 
 _f32 = np.float32
@@ -141,7 +144,8 @@ def _force_sum(xi, yi, vxi, vyi, p_i, params: FluidParams, bound, tap_fn,
 def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig):
     """Semi-implicit Euler + gravity + bounce box, masked to live slots
     (x < 1e8), and the max squared displacement of the live slots from the
-    rebin reference.  Returns (x, y, vx, vy, disp2)."""
+    rebin reference (``ref_x is xi``: from the old positions, the refless
+    trigger's step maximum).  Returns (x, y, vx, vy, disp2)."""
     dt = float(cfg.dt)
     bounce = float(cfg.bounce)
     live = xi < 1e8
@@ -168,6 +172,32 @@ def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig):
     return x, y, vx, vy, disp2
 
 
+def integrate_into(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y,
+                   cfg: IntegrateConfig, refless: bool = False):
+    """``integrate`` of the unfused step's tail with the accelerations'
+    planes as the velocities' outputs: ``ax`` and ``ay`` are TAKEN and come
+    back holding vx and vy, x and y are new planes, and the arithmetic runs
+    in row slabs (``ops.reslot.slab_rows``), so its temporaries are a
+    slab's, not a plane's.  The same values as
+    ``integrate`` bit for bit (elementwise, and a max).  ``refless``:
+    the displacement is from the old positions (``ref_x``/``ref_y`` are
+    not read).  Returns (x, y, vx, vy, disp2)."""
+    if refless:
+        ref_x, ref_y = xi, yi
+    x = torch.empty_like(xi)
+    y = torch.empty_like(yi)
+    rows = slab_rows(xi.shape)
+    disp = []
+    for r in range(0, xi.shape[0], rows):
+        sl = slice(r, r + rows)
+        xs, ys, vxs, vys, d = integrate(xi[sl], yi[sl], vxi[sl], vyi[sl],
+                                        ax[sl], ay[sl], ref_x[sl],
+                                        ref_y[sl], cfg)
+        x[sl], y[sl], ax[sl], ay[sl] = xs, ys, vxs, vys
+        disp.append(d)
+    return x, y, ax, ay, torch.stack(disp).amax()
+
+
 # ---------------------------------------------------------------------------
 # K1: density
 # ---------------------------------------------------------------------------
@@ -184,14 +214,19 @@ def density_torch(xd, yd, params: FluidParams, grid: GridSpec2D,
 
 
 def density_cuda(xd, yd, params: FluidParams, grid: GridSpec2D,
-                 occ) -> torch.Tensor:
+                 occ, out=None) -> torch.Tensor:
     """Density stencil over the dense grid (kernel K1).  ``occ`` is the
-    sim's cached ``block_kmax3``.  Returns rho_d with ghost blocks 0."""
-    dev = _build.check_planes(grid, occ, xd=xd, yd=yd)
+    sim's cached ``block_kmax3``.  Returns rho_d with ghost blocks 0:
+    written into ``out`` (a dead float32 plane, the reference's
+    ``rho_out``; every slot is written) when given, else a new plane."""
+    planes = dict(xd=xd, yd=yd) if out is None else dict(xd=xd, yd=yd,
+                                                          out=out)
+    dev = _build.check_planes(grid, occ, **planes)
     if dev.type == "cpu":
-        return density_torch(xd, yd, params, grid, occ)
+        rho = density_torch(xd, yd, params, grid, occ)
+        return rho if out is None else out.copy_(rho)
     h2, coeff = _density_consts(params)
-    rho = torch.empty_like(xd)
+    rho = torch.empty_like(xd) if out is None else out
     _build.launch("bgf_density", dev, xd.data_ptr(), yd.data_ptr(),
                   occ.data_ptr(), rho.data_ptr(), grid.ny_pad, grid.cap,
                   grid.nx_pad, grid.row_block, grid.n_row_blocks, float(h2),
@@ -209,9 +244,12 @@ density_cuda.launches = 0
 
 def forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
                            params: FluidParams, cfg: IntegrateConfig,
-                           grid: GridSpec2D, occ):
+                           grid: GridSpec2D, occ, refless: bool = False):
     """Plain PyTorch twin of kernel K2.  Returns (xd', yd', vxd', vyd',
-    disp2) with disp2 a float32 0-dim tensor."""
+    disp2) with disp2 a float32 0-dim tensor; ``refless``: disp2 from the
+    old positions (``ref_xd``/``ref_yd`` are not read)."""
+    if refless:
+        ref_xd, ref_yd = xd, yd
     p, ir = _eos(rho_d, params)
     kmax = row_kmax(occ, grid)
     ax, ay = _force_sum(xd, yd, vxd, vyd, p, params, kmax,
@@ -228,35 +266,44 @@ def forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
 
 def forces_integrate_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
                           params: FluidParams, cfg: IntegrateConfig,
-                          grid: GridSpec2D, occ):
+                          grid: GridSpec2D, occ, refless: bool = False):
     """Fused forces + integrate + bounce + skin-displacement pass (kernel
     K2).  Returns (xd', yd', vxd', vyd', disp2): new planes with FAR/0
     ghost blocks, and the max squared displacement of the new live
     positions from the rebin reference as a float32 0-dim tensor (the next
-    step's rebin trigger)."""
+    step's rebin trigger).  ``refless=True``: the displacement is from the
+    old positions (this step's move; the refless trigger sums the square
+    roots), and ``ref_xd``/``ref_yd`` are not read: None or the (1, 1, 1)
+    placeholders of the refless posture.  ``launches`` counts both forms,
+    ``launches_refless`` the refless ones."""
+    refs = {} if refless else dict(ref_xd=ref_xd, ref_yd=ref_yd)
     dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
-                              rho_d=rho_d, ref_xd=ref_xd, ref_yd=ref_yd)
+                              rho_d=rho_d, **refs)
     if dev.type == "cpu":
         return forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
-                                      params, cfg, grid, occ)
+                                      params, cfg, grid, occ, refless)
     c = _forces_consts(params)
     outs = [torch.empty_like(xd) for _ in range(4)]
     disp = torch.empty(1, dtype=torch.float32, device=dev)
     _build.launch(
         "bgf_forces_integrate", dev, xd.data_ptr(), yd.data_ptr(),
-        vxd.data_ptr(), vyd.data_ptr(), rho_d.data_ptr(), ref_xd.data_ptr(),
-        ref_yd.data_ptr(), occ.data_ptr(), *(o.data_ptr() for o in outs),
-        disp.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad, grid.row_block,
-        grid.n_row_blocks,
+        vxd.data_ptr(), vyd.data_ptr(), rho_d.data_ptr(),
+        0 if refless else ref_xd.data_ptr(),
+        0 if refless else ref_yd.data_ptr(), occ.data_ptr(),
+        *(o.data_ptr() for o in outs), disp.data_ptr(), grid.ny_pad,
+        grid.cap, grid.nx_pad, grid.row_block, grid.n_row_blocks,
+        int(refless),
         *(float(c[k]) for k in ("h", "m_half", "spiky_c", "visc_mc")),
         float(params.rho_0), float(params.k), float(cfg.dt),
         float(cfg.x_min), float(cfg.x_max), float(cfg.bounce),
         float(cfg.floor_y))
     forces_integrate_cuda.launches += 1
+    forces_integrate_cuda.launches_refless += int(refless)
     return (*outs, disp[0])
 
 
 forces_integrate_cuda.launches = 0
+forces_integrate_cuda.launches_refless = 0
 
 
 # ---------------------------------------------------------------------------
@@ -425,11 +472,14 @@ def make_stencils(grid: GridSpec2D):
     """(density_fn, forces_fn) on K1 and K8, pluggable into
     ``grid_solver``'s step glue and ``verlet_solver``'s unfused step.  Both
     take an optional ``occ=`` (``block_kmax3`` bounds) and compute it from
-    the planes when none is given."""
-    def density_fn(xd, yd, params, occ=None):
+    the planes when none is given; ``density_fn`` also takes ``out=`` (K1
+    writing into a dead plane; its ``takes_out`` attribute says so)."""
+    def density_fn(xd, yd, params, occ=None, out=None):
         if occ is None:
             occ = block_kmax3(xd, grid)
-        return density_cuda(xd, yd, params, grid, occ)
+        return density_cuda(xd, yd, params, grid, occ, out=out)
+
+    density_fn.takes_out = True
 
     def forces_fn(xd, yd, vxd, vyd, rho_d, params, occ=None):
         if occ is None:

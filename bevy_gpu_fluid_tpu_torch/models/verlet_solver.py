@@ -19,13 +19,25 @@ later rebin once their cell has room and they satisfy the skin invariant
 |v| dt <= skin_half.  ``lost`` counts particles missed by the +-1 reslot
 window, impossible while the skin invariant holds.
 
-The port covers the ref-based postures of the reference: the fused step
-(K1 + K2, or K5 on small grids) by default; the unfused step with explicit
+The port covers the postures of the reference: the fused step (K1 + K2,
+or K5 on small grids) by default; the unfused step with explicit
 ``stencils`` (density, then forces, e.g. K1 + K8 from
 ``cuda_solver.make_stencils``, then Euler, bounce and the trigger as torch
-ops); and the PLANAR rebin (``planar=True`` / ``planar_rebin=True``),
-which splits K3 into one routing pass (K6) and five plane copies (K7) to
-lower the rebin's peak memory, with bitwise the same result.  The step
+ops); the PLANAR rebin (``planar=True`` / ``planar_rebin=True``), which
+splits K3 into one routing pass (K6) and five plane copies (K7) to lower
+the rebin's peak memory, with bitwise the same result; and the postures of
+the card's memory ceiling: the REFLESS trigger (no reference planes: K2's
+refless epilogue reports each step's largest move and ``disp2`` sums their
+square roots, a conservative bound, so rebins fire somewhat earlier and the
+trajectory is not bitwise the ref-based one), owned planes
+(``donate=True``: K1 writes the new rho into the dead rho plane), the
+chunked and generator inits (``init_dense_chunked``, ``init_dense_gen``:
+O(N/K) transients, no [N] particle planes; bitwise ``init_dense``) and the
+segmented driver (``step_until`` + a separate rebin; bitwise the standard
+run).  ``Session`` picks the planar rebin, the refless trigger and the
+segmented driver from the card's memory (``planar_rebin_default``,
+``refless_trigger_default``, ``segmented_run_default``: plane-footprints
+measured on an H100).  The step
 loop is a Python loop, where the reference runs one ``lax.scan`` with a
 ``lax.cond`` rebin:
 the rebin decision reads ``disp2`` on the host, one device sync per step
@@ -53,7 +65,8 @@ from ..core.params import FluidParams, GridSpec2D, IntegrateConfig
 from ..core.state import FluidState
 from ..interact.impulse import IMPULSE, apply_impulse_arrays
 from ..ops import reslot as reslot_ops
-from ..ops.binning import FAR, bin_particles, cell_index, inv_cell, to_dense
+from ..ops.binning import (FAR, bin_particles, cell_coords, cell_index,
+                           inv_cell, stable_rank, to_dense)
 from ..ops.kernels import eos_pressure, self_density
 from ..render import raster
 from . import cuda_solver
@@ -64,6 +77,24 @@ SPILL_CAP = 256  # default spill-buffer entries (recovery pool size)
 # block choice (its pick_row_block, a TPU VMEM budget), kept so the dense
 # layout stays identical to the reference's at every size.
 _WIDE_NX_PAD = 6144
+
+# Peak device memory of each posture in PLANE-FOOTPRINTS (torch's peak
+# allocated bytes over one dense plane's bytes), the larger of one step and
+# one step that rebins with recovery armed, measured by chip_smoke.py phase
+# 14 on a 16M-particle scene on an NVIDIA H100 80GB HBM3 (700 W power
+# limit).  The automatic postures below compare them, times a plane's
+# bytes, with the card's memory.
+FOOTPRINTS = {
+    "default": 15.375,           # fused K1 + K2 + K3, ref-based trigger:
+                                 # the fused rebin binds (the step 13)
+    "planar": 13.0,              # + the planar rebin: the step binds
+    "ceiling": 10.0,             # refless + planar + owned planes
+                                 # (donate: K1 into the dead rho)
+    "ceiling_segmented": 10.0,   # + the segmented driver: no change
+}
+# Bytes of the card kept out of the estimate: the CUDA context, the
+# allocator's rounding and the small tensors of the step.
+RESERVE_BYTES = 2 << 30
 
 
 @dataclasses.dataclass
@@ -123,6 +154,13 @@ def _first_k(mask: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([pos, pad])
 
 
+def _ref_placeholder(device) -> torch.Tensor:
+    """Stand-in for the rebin-reference planes in the refless posture: a
+    (1, 1, 1) float32 tensor, so the two plane-footprints are freed (the
+    refless step never reads them)."""
+    return torch.zeros((1, 1, 1), dtype=torch.float32, device=device)
+
+
 def init_dense(state: FluidState, grid: GridSpec2D,
                spill_cap: int = SPILL_CAP,
                collect_spill: bool = True) -> DenseSim:
@@ -152,6 +190,109 @@ def init_dense(state: FluidState, grid: GridSpec2D,
                     svy=torch.where(dv, state.vy[ds], 0.0),
                     sidx=torch.where(dv, dpos, -1).to(torch.int32),
                     overflow=b.overflow, step=state.step)
+
+
+def _chunk_init_carry(grid: GridSpec2D, spill_cap: int, device) -> dict:
+    """The chunked init's state before the first chunk: empty planes, zero
+    running cell counts, no overflow, an empty spill buffer."""
+    shape = grid.plane_shape
+    f32 = dict(dtype=torch.float32, device=device)
+    return dict(
+        xd=torch.full(shape, FAR, **f32), yd=torch.full(shape, FAR, **f32),
+        vxd=torch.zeros(shape, **f32), vyd=torch.zeros(shape, **f32),
+        idx_d=torch.full(shape, -1, dtype=torch.int32, device=device),
+        cnt=torch.zeros((grid.ny, grid.nx), dtype=torch.int32,
+                        device=device),
+        overflow=0,
+        spill=(torch.full((spill_cap,), FAR, **f32),
+               torch.full((spill_cap,), FAR, **f32),
+               torch.zeros(spill_cap, **f32), torch.zeros(spill_cap, **f32),
+               torch.full((spill_cap,), -1, dtype=torch.int32,
+                          device=device)))
+
+
+def _chunk_init_body(carry: dict, chunk, grid: GridSpec2D,
+                     collect_spill: bool) -> None:
+    """Bin one chunk (x, y, vx, vy, idx; idx int32, original order) into
+    the carry IN PLACE.  A particle's slot is its stable rank within the
+    chunk plus its cell's count from the earlier chunks: the global stable
+    rank of the sort-based init, since chunks come in original order."""
+    x, y, vx, vy, idx = chunk
+    cx, cy = cell_coords(x, y, grid)
+    slot = carry["cnt"][cy, cx].to(torch.int64) + stable_rank(
+        cx + cy * grid.nx)
+    over = slot >= grid.cap
+    keep = ~over
+    row, col, slot = cy[keep] + grid.row0, cx[keep] + 1, slot[keep]
+    for name, v in (("xd", x), ("yd", y), ("vxd", vx), ("vyd", vy),
+                    ("idx_d", idx)):
+        carry[name][row, slot, col] = v[keep]
+    carry["cnt"].index_put_((cy, cx), torch.ones_like(cy, dtype=torch.int32),
+                            accumulate=True)
+    carry["overflow"] += int(over.sum())
+    if collect_spill:
+        m = x.shape[0]
+        dpos = _first_k(over, carry["spill"][0].shape[0])
+        dv = dpos < m
+        ds = torch.clamp_max(dpos, m - 1)
+        carry["spill"] = _spill_merge(carry["spill"], tuple(
+            torch.where(dv, v[ds], fill)
+            for v, fill in zip((x, y, vx, vy, idx), _FILLS)))
+
+
+def _chunk_init_finish(carry: dict, grid: GridSpec2D, step: int) -> DenseSim:
+    xd, yd = carry["xd"], carry["yd"]
+    sx, sy, svx, svy, sidx = carry["spill"]
+    return DenseSim(xd=xd, yd=yd, vxd=carry["vxd"], vyd=carry["vyd"],
+                    rho_d=torch.zeros_like(xd), ref_xd=xd, ref_yd=yd,
+                    idx_d=carry["idx_d"],
+                    occ=reslot_ops.block_kmax3(xd, grid),
+                    disp2=torch.zeros((), dtype=torch.float32,
+                                      device=xd.device),
+                    sx=sx, sy=sy, svx=svx, svy=svy, sidx=sidx,
+                    overflow=carry["overflow"], step=step)
+
+
+def init_dense_chunked(state: FluidState, grid: GridSpec2D, n_chunks: int,
+                       spill_cap: int = SPILL_CAP,
+                       collect_spill: bool = True) -> DenseSim:
+    """``init_dense`` with O(N / n_chunks) transient memory: a Python loop
+    over ``n_chunks`` slices of the particles in original order, each
+    binned with its own stable sort into the planes and a running
+    per-cell count.  Bitwise ``init_dense``'s DenseSim (every plane, the
+    spill buffer, overflow and occ): the slots are the sort's global
+    stable ranks, the spill keeps the first drops in particle order."""
+    n = state.n
+    c = -(-n // n_chunks)
+    carry = _chunk_init_carry(grid, spill_cap, state.device)
+    for lo in range(0, n, c):
+        hi = min(lo + c, n)
+        idx = torch.arange(lo, hi, dtype=torch.int32, device=state.device)
+        _chunk_init_body(carry, (state.x[lo:hi], state.y[lo:hi],
+                                 state.vx[lo:hi], state.vy[lo:hi], idx),
+                         grid, collect_spill)
+    return _chunk_init_finish(carry, grid, state.step)
+
+
+def init_dense_gen(gen, n: int, grid: GridSpec2D, n_chunks: int,
+                   spill_cap: int = SPILL_CAP, collect_spill: bool = True,
+                   step: int = 0, device="cuda") -> DenseSim:
+    """``init_dense_chunked`` with the chunks COMPUTED instead of sliced:
+    ``gen(gi)`` maps an int64 tensor of global particle indices to that
+    chunk's (x, y, vx, vy) float32 tensors on ``device`` (e.g.
+    ``core.state.lattice_gen``).  No [N] tensor is ever made: the
+    particles' four planes, and the sort workspace, exist one chunk at a
+    time.  Bitwise ``init_dense`` on the state ``gen`` describes."""
+    device = torch.device(device)
+    c = -(-n // n_chunks)
+    carry = _chunk_init_carry(grid, spill_cap, device)
+    for lo in range(0, n, c):
+        gi = torch.arange(lo, min(lo + c, n), device=device)
+        x, y, vx, vy = gen(gi)
+        _chunk_init_body(carry, (x, y, vx, vy, gi.to(torch.int32)), grid,
+                         collect_spill)
+        del x, y, vx, vy, gi
+    return _chunk_init_finish(carry, grid, step)
 
 
 def extract_fields(sim: DenseSim, grid: GridSpec2D, params: FluidParams,
@@ -259,7 +400,8 @@ def _spill_admit(xd, yd, vxd, vyd, idx_d, cnt,
 def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                     grid: GridSpec2D, max_age: int = 64,
                     n: int | None = None, *, stencils=None,
-                    planar: bool = False, code_dtype=torch.int32):
+                    planar: bool = False, code_dtype=torch.int32,
+                    refless: bool = False, donate: bool = False):
     """The dense step as ``(pure_step, rebin, need)``: ``need(sim)`` is the
     rebin trigger (a host bool), ``rebin(sim)`` the local reslot with
     recovery, ``pure_step(sim)`` the step's kernels.  ``n`` (the particle
@@ -285,7 +427,20 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
     holds five new planes beside the old ones.  If the rebin fails before
     any input plane was consumed, the DenseSim gets its planes back (its
     references set to them: the rebin is still due); after that it cannot
-    be restored, and the error says so."""
+    be restored, and the error says so.
+
+    ``refless=True`` is the REFLESS trigger: the DenseSim carries (1, 1, 1)
+    placeholders for the reference planes (two plane-footprints fewer),
+    K2 (or the unfused tail) reports the step's largest squared move and
+    ``disp2`` accumulates its square root, compared with half the skin
+    unsquared.  A conservative bound: rebins fire somewhat earlier, the
+    physics is the same, but the trajectory is not bitwise the ref-based
+    one.  It never steps on K5.
+
+    ``donate=True``: the step OWNS the planes of the DenseSim it is given.
+    K1 writes the new rho into the old rho plane (``density_cuda``'s
+    ``out``; the stencils' ``out`` where their ``takes_out`` says so), so
+    the given DenseSim's ``rho_d`` changes under it."""
     reslot_ops.check_code_dtype(code_dtype, grid.cap)
     reslot = reslot_ops.make_reslot(grid)
     skin_half = _skin(params, grid)
@@ -293,9 +448,17 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
     q = skin_half / cfg.dt
     vmax2 = q * q
     fused = stencils is None
-    mono = fused and grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+    mono = (fused and grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+            and not refless)
     if not fused:
         density_fn, forces_fn = stencils
+    rho_into = donate and (fused or getattr(density_fn, "takes_out", False))
+
+    def fresh_refs(xd, yd):
+        """The rebin references of new position planes."""
+        if refless:
+            return _ref_placeholder(xd.device), _ref_placeholder(xd.device)
+        return xd, yd
 
     def host_counts(xd, cnt, sidx):
         """(alive_before, matched, captured) and whether recovery runs (a
@@ -319,8 +482,9 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
             planes, spill, readmitted = out[:5], out[5:10], out[10]
         xd, yd, vxd, vyd, idx_d = planes
         sx, sy, svx, svy, sidx = spill
+        ref_xd, ref_yd = fresh_refs(xd, yd)
         return DenseSim(xd=xd, yd=yd, vxd=vxd, vyd=vyd, rho_d=sim.rho_d,
-                        ref_xd=xd, ref_yd=yd, idx_d=idx_d,
+                        ref_xd=ref_xd, ref_yd=ref_yd, idx_d=idx_d,
                         occ=reslot_ops.block_kmax3(xd, grid),
                         disp2=torch.zeros_like(sim.disp2),
                         sx=sx, sy=sy, svx=svx, svy=svy, sidx=sidx,
@@ -365,35 +529,46 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
             # nothing consumed: hand the planes back.  The rebin is still
             # due, so the next step rebins before it reads the references.
             sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d = old
-            sim.ref_xd, sim.ref_yd = old[0], old[1]
+            sim.ref_xd, sim.ref_yd = fresh_refs(old[0], old[1])
             raise
         del code
         return rebinned(sim, planes, cnt, stats, spill, recover)
 
     def need(sim: DenseSim) -> bool:
         """Rebin before this step's kernels: a particle outran half the
-        skin (disp2 from the previous step's K2) or the bins aged out.
-        Reads disp2 back to the host."""
-        return sim.age >= max_age or float(sim.disp2) > skin2
+        skin (disp2 from the previous step's K2; refless: the summed step
+        maxima, unsquared) or the bins aged out.  Reads disp2 back to the
+        host."""
+        if sim.age >= max_age:
+            return True
+        return float(sim.disp2) > (float(skin_half) if refless else skin2)
 
     def pure_step(sim: DenseSim) -> DenseSim:
         if mono:
             xd, yd, vxd, vyd, rho_d, disp2 = cuda_solver.mono_step_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, sim.ref_xd, sim.ref_yd,
                 params, cfg, grid, sim.occ)
-        elif fused:
+            return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
+                                       rho_d=rho_d, disp2=disp2,
+                                       age=sim.age + 1, step=sim.step + 1)
+        out = sim.rho_d if rho_into else None
+        if fused:
             rho_d = cuda_solver.density_cuda(sim.xd, sim.yd, params, grid,
-                                             sim.occ)
+                                             sim.occ, out=out)
             xd, yd, vxd, vyd, disp2 = cuda_solver.forces_integrate_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd,
-                sim.ref_yd, params, cfg, grid, sim.occ)
+                sim.ref_yd, params, cfg, grid, sim.occ, refless=refless)
         else:
-            rho_d = density_fn(sim.xd, sim.yd, params, occ=sim.occ)
+            kw = {} if out is None else {"out": out}
+            rho_d = density_fn(sim.xd, sim.yd, params, occ=sim.occ, **kw)
             ax, ay = forces_fn(sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d,
                                params, occ=sim.occ)
-            xd, yd, vxd, vyd, disp2 = cuda_solver.integrate(
+            xd, yd, vxd, vyd, disp2 = cuda_solver.integrate_into(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, ax, ay, sim.ref_xd,
-                sim.ref_yd, cfg)
+                sim.ref_yd, cfg, refless=refless)
+            del ax, ay
+        if refless:
+            disp2 = sim.disp2 + torch.sqrt(disp2)
         return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                                    rho_d=rho_d, disp2=disp2,
                                    age=sim.age + 1, step=sim.step + 1)
@@ -403,12 +578,13 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
 
 def make_step(params: FluidParams, cfg: IntegrateConfig, grid: GridSpec2D,
               max_age: int = 64, n: int | None = None, *, stencils=None,
-              planar: bool = False, code_dtype=torch.int32):
+              planar: bool = False, code_dtype=torch.int32,
+              refless: bool = False):
     """The dense step fn DenseSim -> DenseSim: rebin if needed, then the
     step's kernels (see ``make_step_parts`` for the options)."""
     pure_step, rebin, need = make_step_parts(
         params, cfg, grid, max_age, n, stencils=stencils, planar=planar,
-        code_dtype=code_dtype)
+        code_dtype=code_dtype, refless=refless)
 
     def step(sim: DenseSim) -> DenseSim:
         if need(sim):
@@ -445,19 +621,105 @@ def multi_step(state: FluidState, params: FluidParams, cfg: IntegrateConfig,
     return out, sim.overflow + sim.lost, sim.rebin_count
 
 
+def _card_bytes(total_bytes, device):
+    """The memory the automatic postures budget against: ``total_bytes``
+    when given, else the CUDA device's total (``torch.cuda.mem_get_info``);
+    None for a CPU device, where no posture is automatic."""
+    if total_bytes is not None:
+        return total_bytes
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def _fits(footprints: float, grid: GridSpec2D, total_bytes,
+          device="cuda") -> bool:
+    """Whether ``footprints`` planes of ``grid`` fit the card's memory
+    (less ``RESERVE_BYTES``); True where there is no card to budget."""
+    total = _card_bytes(total_bytes, device)
+    if total is None:
+        return True
+    plane_bytes = 4 * grid.ny_pad * grid.cap * grid.nx_pad
+    return footprints * plane_bytes + RESERVE_BYTES <= total
+
+
+def planar_rebin_default(grid: GridSpec2D, total_bytes: int | None = None,
+                         device="cuda") -> bool:
+    """Auto-select the plane-at-a-time rebin where the default posture,
+    whose fused rebin sets its peak (``FOOTPRINTS["default"]``), does not
+    fit the card."""
+    return not _fits(FOOTPRINTS["default"], grid, total_bytes, device)
+
+
+def refless_trigger_default(grid: GridSpec2D,
+                            total_bytes: int | None = None,
+                            device="cuda") -> bool:
+    """Auto-select the refless trigger where even the ref-based posture
+    with the planar rebin (``FOOTPRINTS["planar"]``: its step binds, eight
+    resident planes, K1's rho and K2's four) does not fit the card."""
+    return not _fits(FOOTPRINTS["planar"], grid, total_bytes, device)
+
+
+def segmented_run_default(grid: GridSpec2D, total_bytes: int | None = None,
+                          device="cuda") -> bool:
+    """Auto-select the segmented driver where it fits and the standard
+    driver does not.  Both are host loops here, and the probe measured the
+    same peak for both (``FOOTPRINTS["ceiling_segmented"]`` against
+    ``["ceiling"]``), so on this card it never engages by itself."""
+    return (_fits(FOOTPRINTS["ceiling_segmented"], grid, total_bytes, device)
+            and not _fits(FOOTPRINTS["ceiling"], grid, total_bytes, device))
+
+
+def step_until(sim: DenseSim, k: int, pure_step, need):
+    """Pure steps (no rebin) until the trigger fires or ``k`` steps are
+    done: returns (sim, steps_done, need), ``need`` the trigger's value
+    before the next step.  The segmented driver's step segment."""
+    done = 0
+    pending = need(sim)
+    while done < k and not pending:
+        sim = pure_step(sim)
+        done += 1
+        pending = need(sim)
+    return sim, done, pending
+
+
+def _session_fingerprint(stencils, max_age: int, recovery: bool,
+                         refless: bool, code_dtype) -> dict:
+    """Solver knobs that a checkpoint records and a restore must match for
+    a bitwise continuation, in the reference's kinds (its
+    ``_session_fingerprint``): "fused-pallas" for the fused kernels,
+    "custom-stencils" otherwise; the reslot is always "default" here.
+    ``code_dtype`` is recorded too (an artifact of the reference lacks it,
+    and ``check_fingerprint`` compares only the saved keys).  The planar
+    rebin and donation are bit-neutral and absent."""
+    return {
+        "solver": "fused-pallas" if stencils is None else "custom-stencils",
+        "reslot": "default",
+        "max_age": max_age,
+        "recovery": recovery,
+        "refless": refless,
+        "code_dtype": str(code_dtype).removeprefix("torch."),
+    }
+
+
 class Session:
     """Persistent dense-resident run: ``run(k)`` advances k steps on the
     device with no per-call rebinning, ``run_frame``/``run_frames``/
     ``frame`` render the density field from the resident planes, and
     ``state()`` materializes a FluidState only when asked.  ``device`` is
     where the dense state lives (the input state is copied there); it
-    defaults to the GPU."""
+    defaults to the GPU.  ``save``/``restore`` checkpoint the resident
+    state, and a restored Session continues bitwise."""
 
     def __init__(self, state: FluidState, params: FluidParams,
                  cfg: IntegrateConfig, grid: GridSpec2D, *, device="cuda",
                  stencils=None, max_age: int = 64,
                  spill_cap: int = SPILL_CAP, recovery: bool = True,
-                 planar_rebin: bool = False, code_dtype=torch.int32):
+                 planar_rebin: bool | None = None, code_dtype=torch.int32,
+                 init_chunks: int | None = None, donate: bool = False,
+                 refless_trigger: bool | None = None,
+                 segmented: bool | None = None):
         """``recovery=False`` reverts overflow handling to the counted-loss
         contract: drops are counted, never collected or re-admitted.
         ``stencils`` (e.g. ``cuda_solver.make_stencils(grid)``, K1 + K8)
@@ -466,41 +728,124 @@ class Session:
         memory); ``code_dtype`` its code plane's type.  See
         ``make_step_parts``.  A planar Session's next rebin consumes its
         ``sim``: a DenseSim read from ``self.sim`` loses its planes then,
-        so copy the tensors to keep a snapshot.  The planar rebin stays
-        off by default: the
-        reference switches it on by a memory threshold of a 16 GiB TPU,
-        and the H100's threshold is not measured yet."""
+        so copy the tensors to keep a snapshot.
+
+        The very-large-N knobs: ``init_chunks=K`` builds the dense state
+        with ``init_dense_chunked`` (O(N/K) transients, bitwise
+        ``init_dense``); ``donate=True`` makes the Session OWN its planes:
+        each step writes the new rho into the old rho plane, so a DenseSim
+        taken from ``self.sim`` earlier is invalidated by the next step
+        (snapshot with ``save`` or ``state()``, or copy its tensors);
+        ``refless_trigger=True`` drops the two reference planes for a
+        conservative summed-displacement trigger (NOT bitwise the
+        ref-based trigger: rebins fire somewhat earlier; the physics is the
+        same); ``segmented=True`` runs ``step_until`` segments and each
+        rebin apart (bitwise the standard run).
+
+        ``planar_rebin``, ``refless_trigger`` and ``segmented`` left None
+        are chosen from the card's memory (``planar_rebin_default``,
+        ``refless_trigger_default``, ``segmented_run_default``, on
+        plane-footprints measured on an H100).  All of them are off below
+        the card's memory wall (at 1M particles, say) and on a CPU device.
+        Unlike the reference, the fused K2 stays at the wall: the
+        two-kernel tail (K1 + K8 + ``cuda_solver.integrate_into``) peaked
+        higher than K2 on the card (PERF.md)."""
+        self._setup(params, cfg, grid, state.n, device, stencils, max_age,
+                    spill_cap, recovery, planar_rebin, code_dtype,
+                    init_chunks, donate, refless_trigger, segmented)
+        self.reset(state)
+
+    @classmethod
+    def from_generator(cls, gen, n: int, params: FluidParams,
+                       cfg: IntegrateConfig, grid: GridSpec2D, *,
+                       device="cuda", stencils=None, max_age: int = 64,
+                       spill_cap: int = SPILL_CAP, recovery: bool = True,
+                       planar_rebin: bool | None = None,
+                       code_dtype=torch.int32, init_chunks: int = 16,
+                       donate: bool = True,
+                       refless_trigger: bool | None = None,
+                       segmented: bool | None = None) -> "Session":
+        """A Session whose initial scene ``gen`` COMPUTES chunk by chunk
+        (``init_dense_gen``; e.g. ``core.state.lattice_gen``) instead of
+        binning a FluidState: no [N] particle tensor ever exists on the
+        device.  The memory-ceiling path; its defaults are the very-large-N
+        posture (``init_chunks=16``, ``donate=True``)."""
+        self = cls.__new__(cls)
+        self._setup(params, cfg, grid, n, device, stencils, max_age,
+                    spill_cap, recovery, planar_rebin, code_dtype,
+                    init_chunks, donate, refless_trigger, segmented)
+        self.sim = init_dense_gen(gen, n, grid, init_chunks, spill_cap,
+                                  collect_spill=recovery,
+                                  device=self.device)
+        self._apply_refless()
+        return self
+
+    def _setup(self, params, cfg, grid, n, device, stencils, max_age,
+               spill_cap, recovery, planar_rebin, code_dtype, init_chunks,
+               donate, refless_trigger, segmented) -> None:
         self.params = params
         self.cfg = cfg
         self.grid = grid
-        self.n = state.n
+        self.n = n
         self.device = torch.device(device)
+        if planar_rebin is None:
+            planar_rebin = planar_rebin_default(grid, device=self.device)
+        if refless_trigger is None:
+            refless_trigger = refless_trigger_default(grid,
+                                                      device=self.device)
+        if segmented is None:
+            segmented = segmented_run_default(grid, device=self.device)
         self.planar_rebin = planar_rebin
+        self.refless_trigger = refless_trigger
+        self.segmented = segmented
+        self.donate = donate
         self._spill_cap = spill_cap
         self._recovery = recovery
+        self._init_chunks = init_chunks
+        self._fingerprint = _session_fingerprint(
+            stencils, max_age, recovery, refless_trigger, code_dtype)
         self._pure_step, self._rebin, self._need = make_step_parts(
-            params, cfg, grid, max_age, n=self.n if recovery else None,
-            stencils=stencils, planar=planar_rebin, code_dtype=code_dtype)
-        self.reset(state)
+            params, cfg, grid, max_age, n=n if recovery else None,
+            stencils=stencils, planar=planar_rebin, code_dtype=code_dtype,
+            refless=refless_trigger, donate=donate)
+
+    def _apply_refless(self) -> None:
+        """Refless posture: swap the fresh reference planes for (1, 1, 1)
+        placeholders, so the two plane-footprints are freed at once."""
+        if self.refless_trigger:
+            self.sim.ref_xd = _ref_placeholder(self.device)
+            self.sim.ref_yd = _ref_placeholder(self.device)
 
     def reset(self, state: FluidState) -> None:
         """Re-seed the resident DenseSim from a per-particle FluidState
-        (fresh binning: the rebin age and skin references restart, the step
-        counter continues from ``state.step``)."""
+        (fresh binning, chunked when the Session was built with
+        ``init_chunks``: the rebin age and skin references restart, the
+        step counter continues from ``state.step``)."""
         if state.n != self.n:
             raise ValueError(f"reset with n={state.n}, Session built for "
                              f"n={self.n}")
-        self.sim = init_dense(state.to(self.device), self.grid,
-                              self._spill_cap, collect_spill=self._recovery)
+        state = state.to(self.device)
+        if self._init_chunks is None:
+            self.sim = init_dense(state, self.grid, self._spill_cap,
+                                  collect_spill=self._recovery)
+        else:
+            self.sim = init_dense_chunked(state, self.grid,
+                                          self._init_chunks, self._spill_cap,
+                                          collect_spill=self._recovery)
+        self._apply_refless()
 
     def run(self, n_steps: int, chunk: int | None = None) -> None:
         """Advance n_steps: per step, rebin if the trigger fired, then the
         step's kernels.  Returns as soon as the last step is enqueued
         (apart from the per-step trigger read).  ``chunk=K`` runs the steps
         as sequential calls of at most K steps, the reference's API: the
-        same trajectory bit for bit."""
+        same trajectory bit for bit (for the segmented driver, its segment
+        bound)."""
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk={chunk}: want at least 1")
+        if self.segmented:
+            self._run_segmented(n_steps, chunk)
+            return
         done = 0
         while done < n_steps:
             k = n_steps - done if chunk is None else min(chunk, n_steps - done)
@@ -512,6 +857,22 @@ class Session:
             if self._need(self.sim):
                 self.sim = self._rebin(self.sim)
             self.sim = self._pure_step(self.sim)
+
+    def _run_segmented(self, n_steps: int, chunk: int | None) -> None:
+        """The segmented driver: ``step_until`` segments of at most
+        ``chunk`` steps, and a rebin wherever a segment stopped on the
+        trigger with steps left.  Bitwise the standard run: a rebin runs
+        exactly where a step's check would have run it (a segment that
+        ends on its bound with the trigger clear continues in the next)."""
+        cap = n_steps if chunk is None else chunk
+        done = 0
+        while done < n_steps:
+            k = min(cap, n_steps - done)
+            self.sim, did, pending = step_until(self.sim, k, self._pure_step,
+                                                self._need)
+            done += did
+            if done < n_steps and pending:
+                self.sim = self._rebin(self.sim)
 
     def frame(self, px_per_cell: int = 2,
               mode: str = "density") -> torch.Tensor:
@@ -559,6 +920,48 @@ class Session:
         return FluidState(x=x, y=y, vx=vx, vy=vy, ax=z, ay=z.clone(),
                           rho=rho, p=eos_pressure(rho, self.params),
                           step=self.sim.step)
+
+    def save(self, path: str) -> None:
+        """Snapshot the RESIDENT DenseSim (slot structure, skin references,
+        counters) with the grid, params, cfg, particle count and the solver
+        knobs' fingerprint (``utils/checkpoint.save_dense``, the reference's
+        npz format): ``Session.restore`` continues bitwise, where a reset
+        from ``state()`` would re-sort and restart the rebin schedule."""
+        from ..utils import checkpoint
+        checkpoint.save_dense(path, self.sim, self.grid, self.params,
+                              self.cfg, self.n, fingerprint=self._fingerprint)
+
+    @classmethod
+    def restore(cls, path: str, *, device="cuda", stencils=None,
+                max_age: int = 64, recovery: bool = True,
+                planar_rebin: bool | None = None, code_dtype=torch.int32,
+                refless_trigger: bool | None = None,
+                segmented: bool | None = None,
+                donate: bool = False) -> "Session":
+        """A Session from ``save`` (or the reference's ``Session.save``),
+        its planes on ``device``.  The solver knobs are supplied again and
+        must match the artifact's fingerprint, or ValueError: a mismatch
+        would continue on a diverging trajectory.  ``refless_trigger=None``
+        resolves through ``refless_trigger_default`` BEFORE the check, so
+        a ceiling-posture artifact restores without naming it.  The planar
+        rebin, donation and the segmented driver are bit-neutral."""
+        from ..utils import checkpoint
+        device = torch.device(device)
+        sim, grid, params, cfg, n = checkpoint.load_dense(path, device)
+        if refless_trigger is None:
+            refless_trigger = refless_trigger_default(grid, device=device)
+        checkpoint.check_fingerprint(
+            checkpoint.load_fingerprint(path),
+            _session_fingerprint(stencils, max_age, recovery,
+                                 refless_trigger, code_dtype),
+            "Session.restore")
+        self = cls.__new__(cls)
+        self._setup(params, cfg, grid, n, device, stencils, max_age,
+                    SPILL_CAP, recovery, planar_rebin, code_dtype, None,
+                    donate, refless_trigger, segmented)
+        self._spill_cap = sim.sx.shape[0]
+        self.sim = sim
+        return self
 
     @property
     def overflow(self) -> int:

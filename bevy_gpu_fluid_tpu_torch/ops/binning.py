@@ -60,23 +60,28 @@ def cell_coords(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D):
             cell_index(y, grid.origin_y, inv, 0, grid.ny - 1))
 
 
-def bin_particles(x: torch.Tensor, y: torch.Tensor,
-                  grid: GridSpec2D) -> Binned:
-    """Bin N particles: stable sort by cell id, ranks from a segment
-    cummax, one scatter back to original order."""
-    n = x.shape[0]
-    cx, cy = cell_coords(x, y, grid)
-    cid = cx + cy * grid.nx
+def stable_rank(cid: torch.Tensor) -> torch.Tensor:
+    """Within-group rank of each element of ``cid`` (int64 [n], original
+    order): a stable sort by id, ranks from a segment cummax, one scatter
+    back, so equal ids rank in original-index order."""
+    n = cid.shape[0]
     perm = torch.argsort(cid, stable=True)
     sorted_cell = cid[perm]
-    pos = torch.arange(n, device=x.device)
-    is_new = torch.ones(n, dtype=torch.bool, device=x.device)
+    pos = torch.arange(n, device=cid.device)
+    is_new = torch.ones(n, dtype=torch.bool, device=cid.device)
     is_new[1:] = sorted_cell[1:] != sorted_cell[:-1]
     seg_start = torch.cummax(torch.where(is_new, pos, -1), dim=0).values
-    sorted_rank = pos - seg_start
-    rank = torch.empty_like(sorted_rank)
-    rank[perm] = sorted_rank
-    overflow = int((sorted_rank >= grid.cap).sum())
+    rank = torch.empty_like(pos)
+    rank[perm] = pos - seg_start
+    return rank
+
+
+def bin_particles(x: torch.Tensor, y: torch.Tensor,
+                  grid: GridSpec2D) -> Binned:
+    """Bin N particles: clamped cell coords and their ``stable_rank``."""
+    cx, cy = cell_coords(x, y, grid)
+    rank = stable_rank(cx + cy * grid.nx)
+    overflow = int((rank >= grid.cap).sum())
     return Binned(cx=cx, cy=cy, rank=rank, overflow=overflow, grid=grid)
 
 

@@ -317,20 +317,41 @@ def apply_code_cuda(payload, code, occ, grid: GridSpec2D, fill):
 apply_code_cuda.launches = 0
 
 
+# Whole-plane torch passes with many temporaries (``taken_mask`` here,
+# ``cuda_solver.integrate_into``) run in SLABS row slabs on planes of more
+# than SLAB_MIN elements, so their temporaries are a fixed share of a
+# plane at every size, and in one pass on smaller planes (no extra
+# launches at 1M).
+SLABS = 16
+SLAB_MIN = 1 << 24
+
+
+def slab_rows(shape) -> int:
+    """Rows per slab of a [rows, cap, cols] plane (see ``SLABS``)."""
+    rows = shape[0]
+    if rows * shape[1] * shape[2] <= SLAB_MIN:
+        return rows
+    return -(-rows // SLABS)
+
+
 def taken_mask(code: torch.Tensor, cap: int) -> torch.Tensor:
     """Per SOURCE slot, bool [ny_pad, cap, nx_pad]: did some target slot's
     code route it?  The planar rebin's drop test, read off the code plane
     alone, so the pre-rebin payload planes need not stay alive for it.  A
     code whose source lies outside the plane marks nothing (the
-    reference's halo pad; select never writes such a code)."""
+    reference's halo pad; select never writes such a code).  Decoded in
+    row slabs (``slab_rows``): its int64 temporaries would be about ten
+    plane-footprints in one pass."""
     R, _, C = code.shape
     dev = code.device
-    c, kj, dx, dy = _decode(code)
-    sr = torch.arange(R, device=dev)[:, None, None] + dy
-    sc = torch.arange(C, device=dev)[None, None, :] + dx
-    ok = (c >= 0) & (sr >= 0) & (sr < R) & (sc >= 0) & (sc < C)
     taken = torch.zeros(code.numel(), dtype=torch.bool, device=dev)
-    taken[((sr * cap + kj) * C + sc)[ok]] = True
+    rows = slab_rows(code.shape)
+    for r0 in range(0, R, rows):
+        c, kj, dx, dy = _decode(code[r0:r0 + rows])
+        sr = torch.arange(r0, r0 + c.shape[0], device=dev)[:, None, None] + dy
+        sc = torch.arange(C, device=dev)[None, None, :] + dx
+        ok = (c >= 0) & (sr >= 0) & (sr < R) & (sc >= 0) & (sc < C)
+        taken[((sr * cap + kj) * C + sc)[ok]] = True
     return taken.view(code.shape)
 
 

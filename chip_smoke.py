@@ -72,7 +72,37 @@ with the validator — then checks them:
     table's K8 row: launches, time and bound all from this path); then
     ``Simulation(solver="pallas" | "xla")`` on the 5,041-particle scene
     (frames, golden parity at phase 6's bars) and ``validate_every=16``
-    on the verlet solver (64 steps) with ``validate(mode="fields")``.
+    on the verlet solver (64 steps) with ``validate(mode="fields")``;
+15. the memory ceiling's mechanisms at 1M (phase 4's scene), where they
+    can be held against the default posture: K2 refless against its twin
+    on the 1M planes (its outputs and displacement max bit for bit K2's
+    with the old positions as reference, and its max bit for bit the max
+    over its own outputs), timed with its bound (two planes fewer than
+    K2's); K1 with ``out=`` bitwise without it; ``init_dense_gen`` of
+    ``lattice_gen`` and ``init_dense_chunked`` bitwise ``init_dense``; a
+    segmented Session, with and without ``chunk=``, bitwise the standard
+    one over 300 steps; a refless Session against the ref-based one
+    (|dx| <= 5e-5, rebins >=); ``Session.save`` -> ``restore`` -> 100
+    steps bitwise an uninterrupted run in the default and the refless
+    posture, a restore under the other trigger refused; and
+    ``Simulation.save``/``load`` of the 5,041 scene;
+14. run LAST, after every earlier Session is gone and the cache emptied:
+    the postures' peak memory in plane-footprints (peak allocated bytes
+    over one plane) on a 16M-particle ``tools/bench_scale.py`` scene, over
+    one step and one step that rebins (recovery armed), for the default,
+    refless, refless + planar, refless + planar + donate (the ceiling),
+    the ceiling segmented and the ceiling on the two-kernel tail (and
+    that tail with the plain integrate), with the N each fills this card;
+    then the ceiling run: ``Session.from_generator(lattice_gen(...))`` at
+    an N the default posture's footprint does not fit and at least 5%
+    below the ceiling posture's capacity, every posture left to its
+    default (refless and planar must be chosen), its init time and
+    ms/step over 100 steps (rebins included), fields finite and in the
+    box, overflow and lost 0, K6 once and K7 five times per rebin, K3 and
+    K5 never, refless K2 and K1 once per step, its peak memory against the
+    card's; a profiled step breakdown, one rebin timed, the recovery
+    collect's peak on the ceiling planes; K2 refless timed and bounded on
+    the ceiling planes.
 
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -90,9 +120,14 @@ import subprocess
 import sys
 import time
 
+# the memory-ceiling run allocates planes of several GB next to each
+# other's transients: segments that grow keep the cache from fragmenting
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 N_SIDE = 1000          # bench.py's 1M scene: 1000 x 1000 at spacing 0.04
 WARM_STEPS = 300
@@ -121,6 +156,28 @@ EAGER_WARM = 100   # eager 1M solver: warm-up steps, then timed steps
 EAGER_STEPS = 200
 VALIDATE_EVERY = 16
 BREAKDOWN_STEPS = 60   # profiled 1M steps after the main path (~10 rebins)
+SEGMENTED_STEPS = 300  # phase 15: segmented vs standard 1M Sessions
+REFLESS_STEPS = 120    # phase 15: refless vs ref-based (the JAX test's 120)
+RESTORE_STEPS = 100    # phase 15: steps after a restore
+PROBE_N = 16_000_000   # phase 14: the footprint probe's scene
+CEILING_STEPS = 100    # phase 14: measured steps of the ceiling run
+CEILING_PROFILED = 8   # phase 14: profiled ceiling steps
+PROBE_POSTURES = {     # phase 14: Session knobs of each probed posture
+    "default": dict(refless_trigger=False, planar_rebin=False,
+                    donate=False, segmented=False),
+    "planar": dict(refless_trigger=False, planar_rebin=True, donate=False,
+                   segmented=False),
+    "refless": dict(refless_trigger=True, planar_rebin=False, donate=False,
+                    segmented=False),
+    "refless_planar": dict(refless_trigger=True, planar_rebin=True,
+                           donate=False, segmented=False),
+    "ceiling": dict(refless_trigger=True, planar_rebin=True, donate=True,
+                    segmented=False),
+    "ceiling_segmented": dict(refless_trigger=True, planar_rebin=True,
+                              donate=True, segmented=True),
+    "ceiling_tail": dict(refless_trigger=True, planar_rebin=True,
+                         donate=True, segmented=False, stencils=True),
+}
 
 
 def check(cond: bool, what: str) -> None:
@@ -134,6 +191,42 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock (MHz), power draw (W) and temperature (C)
+    every 200 ms while the ``with`` block runs; the sampler process is
+    stopped on the way out, whatever happens inside."""
+
+    def __enter__(self) -> "SmiSampler":
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.proc.terminate()
+        try:
+            out = self.proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out = self.proc.communicate()[0]
+        self.rows = [[float(v) for v in line.split(",")]
+                     for line in out.splitlines()
+                     if line.count(",") == 2
+                     and "N/A" not in line and "[" not in line]
+
+    def summary(self) -> str:
+        if not self.rows:
+            return "no nvidia-smi samples"
+        cols = list(zip(*self.rows))
+        med = lambda c: sorted(c)[len(c) // 2]
+        return (f"{len(self.rows)} nvidia-smi samples: SM clock "
+                f"{min(cols[0]):.0f}-{max(cols[0]):.0f} MHz (median "
+                f"{med(cols[0]):.0f}), power {min(cols[1]):.0f}-"
+                f"{max(cols[1]):.0f} W (median {med(cols[1]):.0f}), "
+                f"{max(cols[2]):.0f} C at most")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -152,11 +245,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, kernels, reps: int, tries: int = 3) -> dict:
-    """Mean device milliseconds per call of ``fn`` of each CUDA kernel
-    named in ``kernels``, from torch.profiler's device trace: the kernels
-    alone, without the wrapper's host work and other launches.  A trace
-    that lacks a kernel's device records (the profiler drops them now and
-    then) is taken again, up to ``tries`` traces."""
+    """Mean device milliseconds of each CUDA kernel named in ``kernels``
+    (each launched once per call of ``fn``), from torch.profiler's device
+    trace: the kernels alone, without the wrapper's host work and other
+    launches.  The mean is over the launches the trace recorded: the
+    profiler drops a record now and then, and dividing by ``reps`` would
+    then read low (a ceiling K2 read 14.9 and 29.9 ms for 44.8 ms
+    launches).  A trace with no record of a kernel is taken again, up to
+    ``tries`` traces."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -165,11 +261,13 @@ def device_ms(fn, kernels, reps: int, tries: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = {k: [getattr(e, "device_time_total", 0) or e.cuda_time_total
-                  for e in prof.key_averages() if k in e.key]
+        us = {k: [((getattr(e, "device_time_total", 0)
+                    or e.cuda_time_total), e.count)
+                   for e in prof.key_averages() if k in e.key]
               for k in kernels}
-        if all(len(u) == 1 and u[0] > 0 for u in us.values()):
-            return {k: u[0] / 1e3 / reps for k, u in us.items()}
+        if all(len(u) == 1 and u[0][0] > 0 and u[0][1] >= 1
+               for u in us.values()):
+            return {k: u[0][0] / 1e3 / u[0][1] for k, u in us.items()}
     check(False, f"profiler shows no device time for one of {kernels} in "
           f"{tries} traces: {us}")
 
@@ -322,10 +420,8 @@ def sims_equal(a, b) -> bool:
                             for f in dataclasses.fields(a)))
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
-                         " is False); this script runs only on the GPU")
+def paths_1m() -> tuple[list, str]:
+    """Phases 1-13; returns the kernel table's rows and the card's line."""
     import bevy_gpu_fluid_tpu_torch as bt
     from bevy_gpu_fluid_tpu_torch.kernels import _build
     from bevy_gpu_fluid_tpu_torch.models import cuda_solver, grid_solver
@@ -1282,11 +1378,536 @@ def main() -> None:
                or last.acc_max_abs <= validator.ACC_ABS_TOL)
           and last.acc_max_abs > 0.0, f"in-engine parity {last}")
 
+    return kernels, card
+
+def counter_wrappers() -> dict:
+    """Launch counters by kernel-table name: (wrapper, counter attribute).
+    The refless K2 counts in its own attribute besides K2's."""
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.ops import reslot
+    from bevy_gpu_fluid_tpu_torch.render import raster
+    k2 = cuda_solver.forces_integrate_cuda
+    return {"density": (cuda_solver.density_cuda, "launches"),
+            "forces_integrate": (k2, "launches"),
+            "forces_integrate_refless": (k2, "launches_refless"),
+            "reslot": (reslot.reslot_cuda, "launches"),
+            "field_raster": (raster.field_density_cuda, "launches"),
+            "mono_step": (cuda_solver.mono_step_cuda, "launches"),
+            "forces": (cuda_solver.forces_cuda, "launches"),
+            "select": (reslot.select_cuda, "launches"),
+            "apply_code": (reslot.apply_code_cuda, "launches")}
+
+
+def zero_launches() -> None:
+    for fn, attr in counter_wrappers().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict:
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in counter_wrappers().items()}
+
+
+def scale_scene(side: int):
+    """tools/bench_scale.py's scene for side x side particles: (params,
+    cfg, grid) of its box, skin 1.75."""
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    extent = side * 0.04
+    return (bt.FluidParams.demo(),
+            bt.IntegrateConfig.create(x_min=-1.0, x_max=extent + 1.0),
+            vs.default_grid(0.045, -1.0, extent + 1.0,
+                            y_max=extent * 1.1 + 1.0, skin_factor=1.75))
+
+
+def plane_bytes(grid) -> int:
+    return 4 * grid.ny_pad * grid.cap * grid.nx_pad
+
+
+def capacity(footprints: float, total: int, reserve: int) -> int:
+    """The largest particle count n = side^2 of the scale scene whose
+    ``footprints`` planes fit ``total`` bytes less ``reserve``."""
+    lo, hi = 64, 1 << 17
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        fits = footprints * plane_bytes(scale_scene(mid)[2]) + reserve <= total
+        lo, hi = (mid, hi) if fits else (lo, mid)
+    return lo * lo
+
+
+def planes_sane(sim, cfg, rows: int = 512) -> dict:
+    """Slab by slab over the rows: the live slots' count, whether every
+    live field is finite and the positions lie in the box (x in [x_min,
+    x_max], y >= the floor), and whether the dead slots hold FAR."""
+    live_n, ok, dead_far = 0, True, True
+    for r in range(0, sim.xd.shape[0], rows):
+        x, y = sim.xd[r:r + rows], sim.yd[r:r + rows]
+        live = x < 5e8
+        live_n += int(live.sum())
+        fields = torch.stack([x[live], y[live], sim.vxd[r:r + rows][live],
+                              sim.vyd[r:r + rows][live]])
+        ok &= bool(torch.isfinite(fields).all()
+                   & (fields[0] >= float(cfg.x_min)).all()
+                   & (fields[0] <= float(cfg.x_max)).all()
+                   & (fields[1] >= float(cfg.floor_y)).all())
+        dead_far &= bool((x[~live] == 1e9).all() & (y[~live] == 1e9).all())
+    return dict(live=live_n, finite_in_box=ok, dead_far=dead_far)
+
+
+def ceiling_mechanisms_1m(kernels: list, card: str) -> None:
+    """Phase 15: the memory ceiling's mechanisms on phase 4's 1M scene."""
+    import tempfile
+
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.kernels import _build
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+
+    dev = torch.device("cuda", 0)
+    params = bt.FluidParams.demo()
+    extent = N_SIDE * 0.04
+    cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=extent + 1.0)
+    grid = vs.default_grid(0.045, -1.0, extent + 1.0,
+                           y_max=extent * 1.1 + 1.0)
+    state = bt.init_grid(N_SIDE, N_SIDE, 0.04, dev)
+
+    want = vs.init_dense(state, grid)
+    gen = vs.init_dense_gen(bt.lattice_gen(N_SIDE, 0.04, dev), state.n,
+                            grid, 16, device=dev)
+    chunked = vs.init_dense_chunked(state, grid, 16)
+    same_gen, same_chunked = sims_equal(want, gen), sims_equal(want, chunked)
+    print(f"# phase 15: init_dense_gen(lattice_gen) and init_dense_chunked "
+          f"(16 chunks) bitwise init_dense at 1M: {same_gen}, "
+          f"{same_chunked}", flush=True)
+    check(same_gen and same_chunked, "chunked/generator init not bitwise")
+    del want, gen, chunked
+
+    # K2 refless and K1 out= on the planes of a refless Session after
+    # WARM_STEPS steps
+    rs = vs.Session(state, params, cfg, grid, device=dev,
+                    refless_trigger=True)
+    rs.run(WARM_STEPS)
+    s = rs.sim
+    live = s.xd < 5e8
+    rho = cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ)
+    out = torch.full_like(s.xd, float("nan"))
+    got = cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ, out=out)
+    k1_out = got is out and bits_equal(got, rho)
+    check(k1_out, "K1 with out= differs from K1 without it")
+    fargs = (s.xd, s.yd, s.vxd, s.vyd, rho)
+    k2r = lambda: cuda_solver.forces_integrate_cuda(
+        *fargs, None, None, params, cfg, grid, s.occ, refless=True)
+    t2r = lambda: cuda_solver.forces_integrate_torch(
+        *fargs, None, None, params, cfg, grid, s.occ, refless=True)
+    got, want = k2r(), t2r()
+    as_k2 = cuda_solver.forces_integrate_cuda(*fargs, s.xd, s.yd, params,
+                                              cfg, grid, s.occ)
+    same_k2 = all(bits_equal(a, b) for a, b in zip(got, as_k2))
+    ddx, ddy = got[0] - s.xd, got[1] - s.yd
+    own_max = bits_equal(got[4], (ddx * ddx + ddy * ddy)[live].max())
+    pos_err = max(float((g - w).abs().max()) for g, w in zip(got[:2],
+                                                             want[:2]))
+    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
+    vel_err = max(float((g - w).abs().max())
+                  for g, w in zip(got[2:4], want[2:4]))
+    d_err = abs(float(got[4]) - float(want[4]))
+    dead = ~live
+    dead_same = (torch.equal(got[0][dead], s.xd[dead])
+                 and torch.equal(got[1][dead], s.yd[dead])
+                 and bool((got[2][dead] == 0).all()
+                          & (got[3][dead] == 0).all()))
+    print(f"#   K2 refless on the 1M planes after {WARM_STEPS} refless "
+          f"steps: outputs and displacement max bitwise K2's with the old "
+          f"positions as reference: {same_k2}; max bitwise the max over "
+          f"its own outputs: {own_max}; against its twin |dx| "
+          f"{pos_err:.3e} (<= 1e-5), |dv| {vel_err:.3e} of max|v| "
+          f"{vscale:.3f} (<= 1e-4 rel), step max {float(got[4]):.6e} vs "
+          f"{float(want[4]):.6e}; dead slots bitwise: {dead_same}; K1 "
+          f"out= bitwise: {k1_out}", flush=True)
+    check(same_k2 and own_max, "K2 refless not bitwise K2 with ref = x")
+    check(pos_err <= 1e-5 and vel_err <= 1e-4 * vscale
+          and d_err <= 1e-4 * float(want[4]) and dead_same,
+          "K2 refless against its twin")
+    plane_b = 4.0 * s.xd.numel()
+    need_taps, _ = tile_taps(s.xd, s.occ, grid)
+    occ_refless = _build.occupancy("forces_integrate_refless", grid.cap)
+    check(occ_refless["local_bytes"] == 0, "K2 refless spills")
+    row = dict(
+        name="forces_integrate_refless", route="cuda",
+        source="bevy_gpu_fluid_tpu_torch/csrc/forces_integrate.cu",
+        replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:626",
+        launches=None, max_abs_err=max(pos_err, vel_err, d_err),
+        ms=kernel_ms(k2r, "forces_integrate_kernel<true>", 50),
+        wrapper_ms=cuda_ms(k2r, 50), plain_ms=cuda_ms(t2r, 3),
+        library_ms=None, **occ_refless,
+        # two planes fewer than K2: no reference planes
+        **bound(9 * plane_b + 4.0 * s.occ.numel() + 4,
+                need_taps * FORCE_OPS + float(live.sum()) * 20))
+    k2_ms = kernel_ms(lambda: cuda_solver.forces_integrate_cuda(
+        *fargs, s.xd, s.yd, params, cfg, grid, s.occ),
+        "forces_integrate_kernel<false>", 50)
+    kernels.append(row)
+    print(f"#   K2 refless: kernel {row['ms']:.4f} ms (profiler; ref-based "
+          f"K2 {k2_ms:.4f} on the same planes), wrapper "
+          f"{row['wrapper_ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({row['bound_bytes'] / 1e6:.1f} MB, "
+          f"{row['bound_ops'] / 1e9:.3f} GFLOP); {occ_refless} on {card}",
+          flush=True)
+    del s, rs, live, rho, out, got, want, as_k2, ddx, ddy, dead, fargs
+
+    # the segmented driver against the standard one, and refless against
+    # ref-based, from the same state
+    runs = {}
+    for label, kw, chunk, steps in (
+            ("standard", {}, None, SEGMENTED_STEPS),
+            ("segmented", dict(segmented=True), None, SEGMENTED_STEPS),
+            ("segmented chunk=50", dict(segmented=True), 50,
+             SEGMENTED_STEPS),
+            ("ref-based 120", {}, None, REFLESS_STEPS),
+            ("refless 120", dict(refless_trigger=True), None,
+             REFLESS_STEPS)):
+        sess = vs.Session(state, params, cfg, grid, device=dev, **kw)
+        sess.run(steps, chunk=chunk)
+        runs[label] = sess
+    seg = [sims_equal(runs["standard"].sim, runs[k].sim)
+           for k in ("segmented", "segmented chunk=50")]
+    a, b = runs["ref-based 120"], runs["refless 120"]
+    dx = float((a.state().x - b.state().x).abs().max())
+    print(f"#   segmented Session, without and with chunk=50, bitwise the "
+          f"standard one over {SEGMENTED_STEPS} steps at 1M: {seg} "
+          f"({runs['standard'].sim.rebin_count - 1} rebins); refless vs "
+          f"ref-based over {REFLESS_STEPS} steps: |dx| {dx:.3e} (<= 5e-5), "
+          f"rebins {b.sim.rebin_count - 1} >= {a.sim.rebin_count - 1}, "
+          f"overflow {b.overflow} / {a.overflow}", flush=True)
+    check(all(seg), "segmented Session differs from the standard one")
+    check(dx <= 5e-5 and b.sim.rebin_count >= a.sim.rebin_count
+          and a.overflow == b.overflow == 0, "refless vs ref-based")
+    del runs, a, b
+
+    # checkpoint round trips, default and refless
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for posture, kw, other in (("default", {}, True),
+                                   ("refless", dict(refless_trigger=True),
+                                    False)):
+            path = os.path.join(tmp, posture)
+            a = vs.Session(state, params, cfg, grid, device=dev, **kw)
+            a.run(RESTORE_STEPS)
+            a.save(path)
+            a.run(RESTORE_STEPS)
+            b = vs.Session.restore(path, device=dev, **kw)
+            b.run(RESTORE_STEPS)
+            same = sims_equal(a.sim, b.sim)
+            try:
+                vs.Session.restore(path, device=dev, refless_trigger=other)
+                refused = False
+            except ValueError:
+                refused = True
+            print(f"#   {posture} Session.save -> restore -> "
+                  f"{RESTORE_STEPS} steps bitwise an uninterrupted run: "
+                  f"{same} ({a.sim.rebin_count - 1} rebins, "
+                  f"{os.path.getsize(path + '.npz') / 2**20:.1f} MiB); "
+                  f"restore with refless_trigger={other} refused: "
+                  f"{refused}", flush=True)
+            check(same and refused, f"{posture} checkpoint round trip")
+            del a, b
+        fsim = bt.Simulation.dam_break(device=dev)
+        fsim.run(20)
+        path = os.path.join(tmp, "sim")
+        fsim.save(path)
+        gsim = bt.Simulation.dam_break(device=dev)
+        gsim.load(path)
+        fa, fb = fsim.state, gsim.state
+        same = fa.step == fb.step == 20 and all(
+            torch.equal(getattr(fa, f), getattr(fb, f))
+            for f in ("x", "y", "vx", "vy"))
+        print(f"#   Simulation.save/load round trip, 5,041 particles after "
+              f"20 steps: {same}", flush=True)
+        check(same, "Simulation.save/load round trip")
+
+
+def footprints_and_ceiling(kernels: list, card: str) -> None:
+    """Phase 14: the postures' plane-footprints on a 16M scene, then the
+    ceiling run with every posture left to its default.  Runs last."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.ops import reslot
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"# phase 14: device memory free {free / 2**30:.2f} GiB of "
+          f"{total / 2**30:.2f} GiB ({total} B; torch holds "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB) on {card}",
+          flush=True)
+
+    side = math.isqrt(PROBE_N)
+    n = side * side
+    params, cfg, grid = scale_scene(side)
+    plane = plane_bytes(grid)
+    fp = {}
+    for name, knobs in PROBE_POSTURES.items():
+        kw = dict(knobs)
+        if kw.pop("stencils", False):
+            kw["stencils"] = cuda_solver.make_stencils(grid)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sess = vs.Session.from_generator(bt.lattice_gen(side, 0.04, dev), n,
+                                         params, cfg, grid, device=dev, **kw)
+        torch.cuda.synchronize()
+        f = dict(init=torch.cuda.max_memory_allocated() - base)
+        sess.run(2)     # the references now differ from the positions
+        torch.cuda.synchronize()
+        f["resident"] = torch.cuda.memory_allocated() - base
+        check(not sess._need(sess.sim), f"{name}: trigger at step 2")
+        torch.cuda.reset_peak_memory_stats()
+        sess.run(1)
+        torch.cuda.synchronize()
+        f["step"] = torch.cuda.max_memory_allocated() - base
+        while not sess._need(sess.sim):
+            sess.sim = sess._pure_step(sess.sim)
+        r0 = sess.sim.rebin_count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sess.run(1)
+        torch.cuda.synchronize()
+        f["rebin"] = torch.cuda.max_memory_allocated() - base
+        check(sess.sim.rebin_count == r0 + 1, f"{name}: no rebin")
+        if name == "ceiling":
+            # the planar rebin's recovery collect, which runs only when a
+            # particle lost its slot: select, the drops read off the code,
+            # the spill gather, on top of the resident planes
+            s = sess.sim
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            code, _ = reslot.select_cuda(s.xd, s.yd, grid, s.occ)
+            dropped = (s.idx_d >= 0) & ~reslot.taken_mask(code, grid.cap)
+            vs._spill_collect(dropped, (s.xd, s.yd, s.vxd, s.vyd, s.idx_d),
+                              (s.sx, s.sy, s.svx, s.svy, s.sidx))
+            torch.cuda.synchronize()
+            f["collect"] = torch.cuda.max_memory_allocated() - base
+            del s, code, dropped
+        if name == "ceiling_tail":
+            # the same tail with the plain integrate (new planes for all
+            # four outputs, a plane of temporaries per operation)
+            s = sess.sim
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rho = cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ,
+                                           out=s.rho_d)
+            ax, ay = cuda_solver.forces_cuda(s.xd, s.yd, s.vxd, s.vyd, rho,
+                                             params, grid, s.occ)
+            res = cuda_solver.integrate(s.xd, s.yd, s.vxd, s.vyd, ax, ay,
+                                        s.xd, s.yd, cfg)
+            torch.cuda.synchronize()
+            f["plain_integrate_step"] = (torch.cuda.max_memory_allocated()
+                                         - base)
+            del s, rho, ax, ay, res
+        fp[name] = {k: v / plane for k, v in f.items()}
+        fp[name]["peak"] = max(fp[name]["step"], fp[name]["rebin"])
+        del sess
+    reserve = vs.RESERVE_BYTES
+    cap = {k: capacity(v["peak"], total, reserve) for k, v in fp.items()}
+    print(f"#   plane-footprints (peak allocated bytes / one plane of "
+          f"{plane / 2**20:.1f} MiB) of a {n}-particle scale scene "
+          f"{grid.plane_shape}, recovery armed, and the particles each "
+          f"posture fills this card with ({total} B less "
+          f"{reserve / 2**30:.1f} GiB) on {card}:", flush=True)
+    for k, v in fp.items():
+        print(f"#   {k:18s} " + ", ".join(f"{a} {b:.3f}"
+                                          for a, b in v.items())
+              + f"; fills at N = {cap[k]:,}", flush=True)
+    print("#   footprints " + json.dumps({k: round(v["peak"], 3)
+                                           for k, v in fp.items()}),
+          flush=True)
+
+    # the ceiling run: an N that neither the default posture nor the
+    # ref-based planar one fits, at least 5% below the capacity of the
+    # posture the defaults choose, below 2^31 slots per plane
+    n_default, n_auto = cap["default"], cap["ceiling"]
+    n_run = (max(n_default, cap["planar"]) + int(0.95 * n_auto)) // 2
+    side = math.isqrt(n_run)
+    while plane_bytes(scale_scene(side)[2]) // 4 >= 2 ** 31:
+        side -= 16
+    n = side * side
+    check(n_default < n <= 0.95 * n_auto,
+          f"no N between the default posture's capacity {n_default} and "
+          f"0.95 x the ceiling posture's {n_auto}: {n}")
+    params, cfg, grid = scale_scene(side)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = vs.Session.from_generator(bt.lattice_gen(side, 0.04, dev), n,
+                                     params, cfg, grid, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    posture = dict(refless_trigger=sess.refless_trigger,
+                   planar_rebin=sess.planar_rebin, segmented=sess.segmented,
+                   donate=sess.donate)
+    print(f"# phase 14: ceiling run, {n:,} particles ({side} x {side}), "
+          f"grid {grid.plane_shape} ({grid.row_block}-row blocks, "
+          f"{plane_bytes(grid) // 4:,} slots = "
+          f"{plane_bytes(grid) // 4 / 2**31:.3f} x 2^31 per plane, "
+          f"{plane_bytes(grid) / 2**30:.2f} GiB); default posture fills at "
+          f"{n_default:,}, the ceiling posture at {n_auto:,}; posture "
+          f"chosen {posture}; from_generator init {t_init:.2f} s, peak "
+          f"{init_peak / 2**30:.2f} GiB", flush=True)
+    check(sess.refless_trigger and sess.planar_rebin,
+          f"the defaults did not choose the ceiling posture: {posture}")
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = sess.sim.rebin_count
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with SmiSampler() as run_smi:
+        start.record()
+        sess.run(CEILING_STEPS)
+        end.record()
+        end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rebins = sess.sim.rebin_count - r0
+    ms_step = start.elapsed_time(end) / CEILING_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    sane = planes_sane(sess.sim, cfg)
+    print(f"#   {CEILING_STEPS} steps: {ms_step:.3f} ms/step (CUDA events; "
+          f"host {wall / CEILING_STEPS * 1e3:.3f}) = "
+          f"{n / ms_step * 1e3 / 1e9:.3f}G particle-steps/s; rebins "
+          f"{rebins}, overflow {sess.sim.overflow}, lost {sess.sim.lost}, "
+          f"suspended {sess.suspended}; {sane}; peak "
+          f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB "
+          f"({peak / plane_bytes(grid):.3f} planes); launches {launches}; "
+          f"{run_smi.summary()} on {card}", flush=True)
+    check(sane["finite_in_box"] and sane["dead_far"]
+          and sane["live"] == n - sess.suspended, f"ceiling fields {sane}")
+    check(sess.sim.overflow == 0 and sess.sim.lost == 0,
+          "ceiling run overflow or loss")
+    check(rebins >= 1, "no rebin in the ceiling run")
+    check(launches["select"] == rebins
+          and launches["apply_code"] == 5 * rebins,
+          f"K6/K7 launches {launches} for {rebins} rebins")
+    check(launches["reslot"] == 0 and launches["mono_step"] == 0,
+          f"K3/K5 launched on the ceiling path: {launches}")
+    check(launches["forces_integrate_refless"] == CEILING_STEPS
+          and launches["forces_integrate"] == CEILING_STEPS
+          and launches["density"] == CEILING_STEPS,
+          f"refless K2 / K1 launches {launches}")
+    check(peak < total, f"peak {peak} over the card's {total}")
+    row = next(k for k in kernels if k["name"] == "forces_integrate_refless")
+    row["launches"] = launches["forces_integrate_refless"]
+
+    # where a ceiling step goes: K1, K2 refless and one rebin by CUDA
+    # events against the timed ms/step; torch.profiler's view beside them
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sess.run(CEILING_PROFILED)
+        torch.cuda.synchronize()
+    # per recorded launch (the trace may drop records), with the count
+    by_kernel = sorted(
+        ((e.device_time_total / 1e3 / e.count, e.count,
+          e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+          .split("(")[0][-40:])
+         for e in prof.key_averages()
+         if getattr(e, "device_type", None) == DeviceType.CUDA
+         and e.device_time_total > 0), reverse=True)
+    # K1 and K2 refless by CUDA events on the run's planes, ten calls each
+    s = sess.sim
+    k1_ms = cuda_ms(lambda: cuda_solver.density_cuda(
+        s.xd, s.yd, params, grid, s.occ, out=s.rho_d), 10)
+    k2_ms = cuda_ms(lambda: cuda_solver.forces_integrate_cuda(
+        s.xd, s.yd, s.vxd, s.vyd, s.rho_d, None, None, params, cfg, grid,
+        s.occ, refless=True), 10)
+    del s
+    busy = k1_ms + k2_ms
+    start.record()
+    sess.sim = sess._rebin(sess.sim)
+    end.record()
+    end.synchronize()
+    rebin_ms = start.elapsed_time(end)
+    # the planar rebin's recovery collect on the ceiling planes (no drop
+    # made it fire in the run): select, the drops off the code, the spill
+    # gather, beside the resident planes
+    s = sess.sim
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    code, _ = reslot.select_cuda(s.xd, s.yd, grid, s.occ)
+    dropped = (s.idx_d >= 0) & ~reslot.taken_mask(code, grid.cap)
+    vs._spill_collect(dropped, (s.xd, s.yd, s.vxd, s.vyd, s.idx_d),
+                      (s.sx, s.sy, s.svx, s.svy, s.sidx))
+    torch.cuda.synchronize()
+    collect_planes = torch.cuda.max_memory_allocated() / plane_bytes(grid)
+    del s, code, dropped
+    per_rebin = rebin_ms * rebins / CEILING_STEPS
+    print(f"#   where a ceiling step goes: K1 {k1_ms:.3f} ms + K2 refless "
+          f"{k2_ms:.3f} ms (CUDA events, 10 calls each) + a planar rebin "
+          f"(K6, taken counts, 5 x K7, block_kmax3) of {rebin_ms:.2f} ms "
+          f"(CUDA events) x {rebins} in {CEILING_STEPS} steps = "
+          f"{per_rebin:.3f} ms/step, of {ms_step:.3f} ms/step: the rest, "
+          f"{ms_step - busy - per_rebin:.3f} ms/step, is the host, the "
+          f"per-step disp2 read and small kernels; torch.profiler over "
+          f"{CEILING_PROFILED} steps, per recorded launch: " + "; ".join(
+              f"{name} {ms:.3f} ms x{c}" for ms, c, name in by_kernel[:6])
+          + f"; the recovery collect on these planes peaks at "
+          f"{collect_planes:.3f} planes on {card}", flush=True)
+    check(collect_planes < total / plane_bytes(grid),
+          f"the recovery collect would not fit: {collect_planes} planes")
+
+    # K2 refless timed and bounded on the ceiling planes
+    s = sess.sim
+    need_taps, _ = tile_taps(s.xd, s.occ, grid)
+    n_live = float(sane["live"])
+    args = (s.xd, s.yd, s.vxd, s.vyd, s.rho_d, None, None, params, cfg,
+            grid, s.occ)
+    k2c = lambda: cuda_solver.forces_integrate_cuda(*args, refless=True)
+    c_ms = kernel_ms(k2c, "forces_integrate_kernel<true>", 3)
+    with SmiSampler() as k2_smi:     # K2 alone for ~3 s, as in the run
+        c_ms_long = cuda_ms(k2c, 100)
+    c_bound = bound(9 * 4.0 * s.xd.numel() + 4.0 * s.occ.numel() + 4,
+                    need_taps * FORCE_OPS + n_live * 20)
+    row.update(ceiling_ms=c_ms, ceiling_ms_100_calls=c_ms_long,
+               ceiling_bound_ms=c_bound["bound_ms"],
+               ceiling_bound_by=c_bound["bound_by"],
+               ceiling_shape=list(grid.plane_shape), ceiling_n=n,
+               ceiling_ms_per_step=ms_step)
+    print(f"#   K2 refless on the ceiling planes: {c_ms:.3f} ms "
+          f"(profiler, 3 calls), {c_ms_long:.3f} ms per call over 100 calls "
+          f"(CUDA events; {k2_smi.summary()}), bound "
+          f"{c_bound['bound_ms']:.3f} ms by "
+          f"{c_bound['bound_by']} ({c_bound['bound_bytes'] / 1e9:.2f} GB, "
+          f"{c_bound['bound_ops'] / 1e9:.1f} GFLOP); launches on the "
+          f"ceiling path {row['launches']} in {CEILING_STEPS} steps on "
+          f"{card}", flush=True)
+    del s, args, sess
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
+                         " is False); this script runs only on the GPU")
+    import gc
+    kernels, card = paths_1m()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ceiling_mechanisms_1m(kernels, card)
+    footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
 
 if __name__ == "__main__":
     main()

@@ -12,9 +12,13 @@ absolute, velocities 1e-4 of the plane's max |v|, disp2 1e-4 relative, and
 K2's dead slots bitwise (x, y unchanged, zero velocity); K5 rho 1e-5
 relative on live slots and every output of its dead slots bitwise; K4
 1e-5 relative on wet pixels; K8 1e-5 of the plane's max |a| per slot and
-its dead slots bitwise (+0).  The kernels contract multiply-adds into FMAs
+its dead slots bitwise (+0); K2 refless bitwise K2 with the old positions
+as the reference (and within K2's tolerances of its twin), K1 with
+``out=`` bitwise without it.  The kernels contract multiply-adds into FMAs
 and use the hardware rsqrt; the twins round every operation.  The planar
-Session is bitwise the fused one (both rebins route the same values).
+Session is bitwise the fused one (both rebins route the same values); the
+generator init, the segmented driver and a restored Session are bitwise
+what they replace.
 """
 
 import dataclasses
@@ -566,3 +570,115 @@ def test_unfused_session_on_card_matches_cpu_twins(cuda):
     assert float((sa.x.cpu() - sb.x).abs().max()) <= 1e-5
     assert float((sa.vy.cpu() - sb.vy).abs().max()) <= 1e-4
     assert float(((sa.rho.cpu() - sb.rho) / sb.rho).abs().max()) <= 1e-5
+
+
+# ---- the memory-ceiling path: K2 refless, K1 out=, the generator init,
+# the segmented driver, donation and checkpoints on the card
+
+def _k2_refless_matches(s, grid, rho):
+    """K2 refless: its outputs bit for bit K2's with the old positions as
+    the reference (the same pair arithmetic), its displacement max bit for
+    bit the max over its own outputs (rounded term by term), and within
+    the ref-based tolerances of its twin."""
+    args = (s.xd, s.yd, s.vxd, s.vyd, rho)
+    before = cuda_solver.forces_integrate_cuda.launches_refless
+    got = cuda_solver.forces_integrate_cuda(*args, None, None, PARAMS, CFG,
+                                            grid, s.occ, refless=True)
+    assert cuda_solver.forces_integrate_cuda.launches_refless == before + 1
+    ref = cuda_solver.forces_integrate_cuda(*args, s.xd, s.yd, PARAMS, CFG,
+                                            grid, s.occ)
+    for g, r in zip(got, ref):
+        assert torch.equal(_bits(g), _bits(r))
+    live = s.xd < FAR * 0.5
+    dx, dy = got[0] - s.xd, got[1] - s.yd
+    assert torch.equal(got[4], (dx * dx + dy * dy)[live].max())
+    want = cuda_solver.forces_integrate_torch(
+        *args, None, None, PARAMS, CFG, grid, s.occ, refless=True)
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-5
+    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
+    for g, w in zip(got[2:4], want[2:4]):
+        assert float((g - w).abs().max()) <= 1e-4 * vscale
+    assert float(want[4]) > 0
+    assert abs(float(got[4]) - float(want[4])) <= 1e-4 * float(want[4])
+
+
+def test_forces_integrate_refless_kernel(moving_sim):
+    s = moving_sim
+    rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
+    _k2_refless_matches(s, GRID, rho)
+
+
+def test_forces_integrate_refless_on_four_row_blocks(cuda):
+    grid = dataclasses.replace(GRID, row_block=4)
+    state = bt.init_grid(24, 24, 0.04, cuda)
+    state = state.replace(vx=torch.full((state.n,), 2.0, device=cuda))
+    sess = vs.Session(state, PARAMS, CFG, grid, device=cuda,
+                      refless_trigger=True)
+    sess.run(15)
+    s = sess.sim
+    _k2_refless_matches(s, grid, cuda_solver.density_cuda(
+        s.xd, s.yd, PARAMS, grid, s.occ))
+
+
+def test_density_out_bitwise(moving_sim):
+    s = moving_sim
+    want = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
+    out = torch.full_like(s.xd, float("nan"))
+    got = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ, out=out)
+    assert got is out and torch.equal(_bits(got), _bits(want))
+
+
+def test_generator_init_bitwise_on_card(cuda):
+    state = bt.init_grid(40, 30, 0.04, cuda)
+    want = vs.init_dense(state, GRID)
+    for got in (vs.init_dense_gen(bt.lattice_gen(40, 0.04, cuda), state.n,
+                                  GRID, 7, device=cuda),
+                vs.init_dense_chunked(state, GRID, 5)):
+        for f in dataclasses.fields(want):
+            a, b = getattr(want, f.name), getattr(got, f.name)
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b), f.name
+
+
+@pytest.mark.parametrize("posture", ["default", "refless-planar-donate"])
+def test_segmented_bitwise_standard_on_card(cuda, posture):
+    kw = (dict(refless_trigger=True, planar_rebin=True, donate=True)
+          if posture != "default" else {})
+
+    def session(segmented):
+        state = bt.init_grid(24, 24, 0.04, cuda)
+        state = state.replace(vx=torch.full((state.n,), 3.0, device=cuda))
+        return vs.Session(state, PARAMS, CFG, GRID, device=cuda,
+                          segmented=segmented, **kw)
+    a = session(False)
+    a.run(33)
+    for chunk in (None, 5):
+        b = session(True)
+        b.run(33, chunk=chunk)
+        assert a.sim.rebin_count == b.sim.rebin_count >= 3
+        for f in dataclasses.fields(a.sim):
+            x, y = getattr(a.sim, f.name), getattr(b.sim, f.name)
+            assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y), f.name
+
+
+@pytest.mark.parametrize("posture", ["default", "refless"])
+def test_save_restore_bitwise_on_card(cuda, tmp_path, posture):
+    kw = {"refless_trigger": True} if posture == "refless" else {}
+    state = bt.init_grid(24, 24, 0.04, cuda)
+    state = state.replace(vx=torch.full((state.n,), 2.0, device=cuda))
+    a = vs.Session(state, PARAMS, CFG, GRID, device=cuda, **kw)
+    a.run(20)
+    path = str(tmp_path / "card")
+    a.save(path)
+    a.run(20)
+    b = vs.Session.restore(path, device=cuda, **kw)
+    b.run(20)
+    for f in dataclasses.fields(a.sim):
+        x, y = getattr(a.sim, f.name), getattr(b.sim, f.name)
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y), f.name
+    other = {} if kw else {"refless_trigger": True}
+    with pytest.raises(ValueError, match="refless"):
+        vs.Session.restore(path, device=cuda, **other)

@@ -474,9 +474,10 @@ def test_simulation_pool_builder():
     assert sim.overflow == 0
 
 
-def test_simulation_unported_options_raise():
-    """Checkpoints (ROADMAP B4) still raise; the eager solvers and the
-    validator, ported since, construct and run instead."""
+def test_simulation_unported_options_raise(tmp_path):
+    """An unknown solver raises; the eager solvers, the validator and the
+    checkpoints (``save``/``load``), ported since, construct and run
+    instead."""
     state = bt.init_grid(4, 4, 0.04, "cpu")
     grid = tvs.default_grid(0.045, -5.0, 3.0, y_max=4.0)
     for solver in ("pallas", "xla"):
@@ -485,9 +486,10 @@ def test_simulation_unported_options_raise():
     sim = bt.Simulation(state, PARAMS, CFG, grid, validate_every=5,
                         device="cpu")
     assert sim.validate().rho_max_rel <= 0.01
-    for call in (lambda: sim.save("x"), lambda: sim.load("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    path = str(tmp_path / "x")
+    sim.save(path)
+    sim.load(path)
+    assert torch.equal(sim.state.x, state.x)
     with pytest.raises(ValueError):
         bt.Simulation(state, PARAMS, CFG, grid, solver="nope", device="cpu")
 

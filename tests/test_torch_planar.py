@@ -117,14 +117,17 @@ def test_apply_twin_matches_pallas(payload, code_name, tb, scenes):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_taken_mask_matches_jax(scenes):
-    """Per source slot: routed by the code or not, as JAX's taken_mask; and
-    every live slot the fused rebin keeps is taken."""
+def test_taken_mask_matches_jax(scenes, monkeypatch):
+    """Per source slot: routed by the code or not, as JAX's taken_mask,
+    decoded in one pass or in row slabs (a ragged last one); and every
+    live slot the fused rebin keeps is taken."""
     _, planes, _, code_j, _ = scenes[8]
     want = np.asarray(jreslot.taken_mask(code_j, GRID.cap))
-    for dtype in CODES.values():
-        got = reslot.taken_mask(_t(code_j).to(dtype), GRID.cap)
-        np.testing.assert_array_equal(got.numpy(), want)
+    for slab_min in (reslot.SLAB_MIN, 0):       # one pass; 16 row slabs
+        monkeypatch.setattr(reslot, "SLAB_MIN", slab_min)
+        for dtype in CODES.values():
+            got = reslot.taken_mask(_t(code_j).to(dtype), GRID.cap)
+            np.testing.assert_array_equal(got.numpy(), want)
     post = reslot.reslot_torch(*planes, convert.grid_from(GRID))[4]
     kept = torch.isin(planes[4], post[post >= 0]) & (planes[4] >= 0)
     assert torch.equal(got & (planes[4] >= 0), kept)

@@ -273,6 +273,7 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.ops.reslot, "
             "bevy_gpu_fluid_tpu_torch.utils.validator, "
             "bevy_gpu_fluid_tpu_torch.utils.convert, "
+            "bevy_gpu_fluid_tpu_torch.utils.checkpoint, "
             "bevy_gpu_fluid_tpu_torch.render.raster, "
             "bevy_gpu_fluid_tpu_torch.render.pump, "
             "bevy_gpu_fluid_tpu_torch.interact.impulse, "
