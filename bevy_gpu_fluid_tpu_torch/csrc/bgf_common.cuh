@@ -98,8 +98,12 @@ __device__ __forceinline__ bool integrate(float xi, float yi, float vxi,
 // ---- the rebin's candidate scan, shared by K3 (reslot) and K6 (select) so
 // that both assign slots with the same arithmetic, bit for bit.
 
-struct CellGrid {  // single-chip clip [0, nx-1] x [0, ny-1], the grid origin
-  int nx, ny, row0;
+// The cell arithmetic of a rebin: x cells clipped to [clip_lo, clip_hi] (the
+// single-chip [0, nx-1]; a slab of the sharded solver widens it to [-1, nx],
+// so a particle that left the slab is captured in a ghost column), y cells
+// to [0, ny-1], from the world origin of the grid or of the slab.
+struct CellGrid {
+  int ny, row0, clip_lo, clip_hi;
   float origin_x, origin_y, inv;
 };
 
@@ -140,7 +144,7 @@ __device__ __forceinline__ int scan_candidates(
         const float cx = x[j];
         if (!(cx < kHalfFar)) continue;
         const float cy = y[j];
-        if (cell_of(cx, g.origin_x, g.inv, 0, g.nx - 1) != tgt_cx ||
+        if (cell_of(cx, g.origin_x, g.inv, g.clip_lo, g.clip_hi) != tgt_cx ||
             cell_of(cy, g.origin_y, g.inv, 0, g.ny - 1) != tgt_cy)
           continue;
         if (count < cap) on_match(count, j, code_of(kj, dx, dy));

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel `_forces_integrate_kernel` /
 // `forces_integrate_pallas` (bevy_gpu_fluid_tpu/models/pallas_solver.py:400,
-// :961), both triggers, no lane window.  Per live slot i:
+// :961), both triggers, with its lane window.  Per live slot i:
 //   p = k * max(rho - rho0, 0), 1/rho = 1 / max(rho, 1e-12)   (EOS in-kernel)
 //   inv_r = rsqrt(r^2 + EPS^2), hr = max(h - r^2 * inv_r, 0)  (softened gate)
 //   a_i = sum_j  m_half (p_i + p_j) / rho_j * spiky_c hr^2 inv_r * (r_i - r_j)
@@ -18,6 +18,11 @@
 // planes fewer, and the driver sums the square roots of the step maxima.
 // The squared distance is rounded term by term (no FMA contraction), so the
 // max equals the one a PyTorch pass over the kernel's own outputs takes.
+// The max covers the lanes [disp_lo, disp_hi) only (`disp_lanes`,
+// pallas_solver.py:646-652; both triggers): a slab of the sharded solver
+// passes its real columns [1, nx_local + 1), so the live neighbour copies
+// in its ghost columns, whose reference is FAR, stay out of the trigger.
+// The single-card path passes [0, nx_pad).
 //
 // What bounds it on the H100.  The bytes bound is 11 planes (7 read, 4
 // written): 157 MB at the 1M-particle shapes [696, 8, 640], 0.047 ms at
@@ -71,8 +76,8 @@ __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
     const float* __restrict__ ref_y, const int* __restrict__ occ,
     float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
     float* __restrict__ ovy, unsigned int* __restrict__ disp_bits, int cap,
-    int nx_pad, int tb, int nb, bgf::ForceConsts fc, float rho0, float k,
-    bgf::IntegrateConsts ic) {
+    int nx_pad, int tb, int nb, int disp_lo, int disp_hi,
+    bgf::ForceConsts fc, float rho0, float k, bgf::IntegrateConsts ic) {
   using namespace bgf;
   const Tile t = tile_of(nx_pad, tb);
   const long long base = static_cast<long long>(t.row0 - 1) * cap * nx_pad;
@@ -122,7 +127,8 @@ __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
     oy[g] = ny;
     ovx[g] = nvx;
     ovy[g] = nvy;
-    if (live) {
+    const int col = t.col0 + tc;
+    if (live && col >= disp_lo && col < disp_hi) {
       const float drx = nx - (kRefless ? own.x : ref_x[g]);
       const float dry = ny - (kRefless ? own.y : ref_y[g]);
       d2 = fmaxf(d2, __fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)));
@@ -146,7 +152,8 @@ extern "C" int bgf_forces_integrate(
     const float* x, const float* y, const float* vx, const float* vy,
     const float* rho, const float* ref_x, const float* ref_y, const int* occ,
     float* ox, float* oy, float* ovx, float* ovy, float* disp, int ny_pad,
-    int cap, int nx_pad, int tb, int nb, int refless, float h, float m_half,
+    int cap, int nx_pad, int tb, int nb, int refless, int disp_lo,
+    int disp_hi, float h, float m_half,
     float spiky_c, float visc_mc, float rho0, float k, float dt, float x_min,
     float x_max, float bounce, float floor_y, cudaStream_t stream) {
   const auto kernel = refless ? forces_integrate_kernel<true>
@@ -158,8 +165,8 @@ extern "C" int bgf_forces_integrate(
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<bgf::tiles_for(ny_pad, nx_pad, tb), kBlock, smem, stream>>>(
       x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy,
-      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb,
-      bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k,
+      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb, disp_lo,
+      disp_hi, bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k,
       bgf::IntegrateConsts{dt, x_min, x_max, bounce, floor_y});
   return static_cast<int>(cudaGetLastError());
 }

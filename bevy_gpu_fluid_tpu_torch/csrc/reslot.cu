@@ -1,8 +1,10 @@
 // K3: sort-free local rebin ("reslot") of the dense slot grid.
 //
 // Replaces the TPU kernel `_reslot_kernel` / `reslot_pallas`
-// (bevy_gpu_fluid_tpu/ops/reslot.py:203, :289) with the single-chip clip
-// [0, nx-1] x [0, ny-1] and the grid's own origin.  Each target cell scans
+// (bevy_gpu_fluid_tpu/ops/reslot.py:203, :289), its x clip range and world
+// origin taken as data (bgf::CellGrid): the single-chip [0, nx-1] and the
+// grid's origin, or a slab's [-1, nx] and origin, which capture the particles
+// that left the slab in its ghost columns.  Each target cell scans
 // the 72 candidate slots of its 3x3 neighbourhood in (kj, dx, dy) order; a
 // candidate matches when it is live (x < FAR/2) and its clipped cell
 // floor((p - origin) * inv) equals the target.  The n-th match goes to
@@ -73,12 +75,13 @@ extern "C" int bgf_reslot(const float* x, const float* y, const float* vx,
                           const float* vy, const int* idx, const int* occ,
                           float* ox, float* oy, float* ovx, float* ovy,
                           int* oidx, int* cnt, int ny_pad, int cap,
-                          int nx_pad, int tb, int nb, int row0, int nx,
-                          int ny, float origin_x, float origin_y, float inv,
-                          cudaStream_t stream) {
+                          int nx_pad, int tb, int nb, int row0,
+                          int clip_lo, int clip_hi, int ny, float origin_x,
+                          float origin_y, float inv, cudaStream_t stream) {
   const long long n_cells = static_cast<long long>(ny_pad) * nx_pad;
   reslot_kernel<<<bgf::blocks_for(n_cells), bgf::kThreads, 0, stream>>>(
       x, y, vx, vy, idx, occ, ox, oy, ovx, ovy, oidx, cnt, cap, nx_pad, tb,
-      nb, n_cells, bgf::CellGrid{nx, ny, row0, origin_x, origin_y, inv});
+      nb, n_cells,
+      bgf::CellGrid{ny, row0, clip_lo, clip_hi, origin_x, origin_y, inv});
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // K6: the planar rebin's routing pass ("select").
 //
 // Replaces the TPU kernel `_select_kernel` / `select_pallas`
-// (bevy_gpu_fluid_tpu/ops/reslot.py:393, :455), single-chip clip.  For
+// (bevy_gpu_fluid_tpu/ops/reslot.py:393, :455), with K3's clip range and
+// origin as data (bgf::CellGrid: single-chip or a slab's).  For
 // every target cell it scans the candidate slots of its 3x3 neighbourhood
 // in (kj, dx, dy) order, as K3 (reslot.cu, bgf::scan_candidates) does: a
 // candidate matches when it is live (x < FAR/2) and its clipped cell
@@ -86,7 +87,7 @@ __global__ void __launch_bounds__(kBlock)
       if (xv < kHalfFar)
         id = (g.row0 + cell_of(yb[off], g.origin_y, g.inv, 0, g.ny - 1)) *
                  nx_pad +
-             cell_of(xv, g.origin_x, g.inv, 0, g.nx - 1) + 1;
+             cell_of(xv, g.origin_x, g.inv, g.clip_lo, g.clip_hi) + 1;
       ids[i] = id;
       return xv;
     });
@@ -150,10 +151,11 @@ cudaError_t launch_select(const float* x, const float* y, const int* occ,
 // returns cudaErrorInvalidValue without launching.
 extern "C" int bgf_select(const float* x, const float* y, const int* occ,
                           void* code, int* cnt, int ny_pad, int cap,
-                          int nx_pad, int tb, int nb, int row0, int nx,
-                          int ny, int code_bytes, float origin_x,
-                          float origin_y, float inv, cudaStream_t stream) {
-  const bgf::CellGrid g{nx, ny, row0, origin_x, origin_y, inv};
+                          int nx_pad, int tb, int nb, int row0,
+                          int clip_lo, int clip_hi, int ny, int code_bytes,
+                          float origin_x, float origin_y, float inv,
+                          cudaStream_t stream) {
+  const bgf::CellGrid g{ny, row0, clip_lo, clip_hi, origin_x, origin_y, inv};
   if (code_bytes == 4)
     return static_cast<int>(
         launch_select(x, y, occ, static_cast<int32_t*>(code), cnt, ny_pad,

@@ -50,14 +50,14 @@ SIGNATURES = {
     # x, y, occ, rho | ny_pad, cap, nx_pad, tb, nb | h2, coeff | stream
     "bgf_density": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
     # x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy, disp
-    # | ny_pad, cap, nx_pad, tb, nb, refless
+    # | ny_pad, cap, nx_pad, tb, nb, refless, disp_lo, disp_hi
     # | h, m_half, spiky_c, visc_mc, rho0, k, dt, x_min, x_max, bounce,
     #   floor_y | stream
-    "bgf_forces_integrate": [_P] * 13 + [_I] * 6 + [_F] * 11 + [_P],
+    "bgf_forces_integrate": [_P] * 13 + [_I] * 8 + [_F] * 11 + [_P],
     # x, y, vx, vy, idx, occ, ox, oy, ovx, ovy, oidx, cnt
-    # | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny | origin_x, origin_y, inv
-    # | stream
-    "bgf_reslot": [_P] * 12 + [_I] * 8 + [_F] * 3 + [_P],
+    # | ny_pad, cap, nx_pad, tb, nb, row0, clip_lo, clip_hi, ny
+    # | origin_x, origin_y, inv | stream
+    "bgf_reslot": [_P] * 12 + [_I] * 9 + [_F] * 3 + [_P],
     # x, y, occ, out | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny, P
     # | origin_x, origin_y, cell_size, cell_size / P, h2, coeff | stream
     "bgf_field": [_P] * 4 + [_I] * 9 + [_F] * 6 + [_P],
@@ -69,9 +69,9 @@ SIGNATURES = {
     # x, y, vx, vy, rho, occ, ax, ay | ny_pad, cap, nx_pad, tb, nb
     # | h, m_half, spiky_c, visc_mc, rho0, k | stream
     "bgf_forces": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
-    # x, y, occ, code, cnt | ny_pad, cap, nx_pad, tb, nb, row0, nx, ny,
-    # code_bytes | origin_x, origin_y, inv | stream
-    "bgf_select": [_P] * 5 + [_I] * 9 + [_F] * 3 + [_P],
+    # x, y, occ, code, cnt | ny_pad, cap, nx_pad, tb, nb, row0, clip_lo,
+    # clip_hi, ny, code_bytes | origin_x, origin_y, inv | stream
+    "bgf_select": [_P] * 5 + [_I] * 10 + [_F] * 3 + [_P],
     # payload, code, occ, out | ny_pad, cap, nx_pad, tb, nb, code_bytes,
     # fill_bits | stream
     "bgf_apply_code": [_P] * 4 + [_I] * 7 + [_P],

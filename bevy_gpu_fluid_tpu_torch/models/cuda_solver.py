@@ -12,7 +12,8 @@ kernels and its eager ``step``/``multi_step``):
   ``_forces_integrate_kernel`` / ``forces_integrate_pallas``
   (pallas_solver.py:400, :961), both triggers: ref-based, and
   ``refless=True`` (the step's own largest displacement, no reference
-  planes read);
+  planes read), and its lane window ``disp_lanes`` (the sharded solver's
+  real columns);
 * K5 ``mono_step_cuda`` (``csrc/mono_step.cu``) replaces
   ``_mono_step_kernel`` / ``mono_step_pallas`` (pallas_solver.py:657,
   :1044): K1 + EOS + K2 in one launch, for grids under
@@ -141,11 +142,13 @@ def _force_sum(xi, yi, vxi, vyi, p_i, params: FluidParams, bound, tap_fn,
     return ax, ay
 
 
-def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig):
+def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig,
+              lanes=None):
     """Semi-implicit Euler + gravity + bounce box, masked to live slots
     (x < 1e8), and the max squared displacement of the live slots from the
     rebin reference (``ref_x is xi``: from the old positions, the refless
-    trigger's step maximum).  Returns (x, y, vx, vy, disp2)."""
+    trigger's step maximum), over the lanes (last axis) [lo, hi) of
+    ``lanes`` when given.  Returns (x, y, vx, vy, disp2)."""
     dt = float(cfg.dt)
     bounce = float(cfg.bounce)
     live = xi < 1e8
@@ -168,6 +171,9 @@ def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig):
     vy = torch.where(live, vy, 0.0)
     drx = x - ref_x
     dry = y - ref_y
+    if lanes is not None:
+        lane = torch.arange(xi.shape[-1], device=xi.device)
+        live = live & (lane >= lanes[0]) & (lane < lanes[1])
     disp2 = torch.where(live, drx * drx + dry * dry, 0.0).amax()
     return x, y, vx, vy, disp2
 
@@ -244,10 +250,12 @@ density_cuda.launches = 0
 
 def forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
                            params: FluidParams, cfg: IntegrateConfig,
-                           grid: GridSpec2D, occ, refless: bool = False):
+                           grid: GridSpec2D, occ, refless: bool = False,
+                           disp_lanes=None):
     """Plain PyTorch twin of kernel K2.  Returns (xd', yd', vxd', vyd',
     disp2) with disp2 a float32 0-dim tensor; ``refless``: disp2 from the
-    old positions (``ref_xd``/``ref_yd`` are not read)."""
+    old positions (``ref_xd``/``ref_yd`` are not read); ``disp_lanes``
+    (lo, hi): disp2 over those lanes only."""
     if refless:
         ref_xd, ref_yd = xd, yd
     p, ir = _eos(rho_d, params)
@@ -256,7 +264,7 @@ def forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
                         lambda kj: taps((xd, yd, vxd, vyd, p, ir), kj),
                         int(kmax.max()))
     x, y, vx, vy, disp2 = integrate(xd, yd, vxd, vyd, ax, ay, ref_xd, ref_yd,
-                                    cfg)
+                                    cfg, disp_lanes)
     tb = grid.row_block
     for plane, fill in ((x, FAR), (y, FAR), (vx, 0.0), (vy, 0.0)):
         plane[:tb] = fill
@@ -266,7 +274,8 @@ def forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
 
 def forces_integrate_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
                           params: FluidParams, cfg: IntegrateConfig,
-                          grid: GridSpec2D, occ, refless: bool = False):
+                          grid: GridSpec2D, occ, refless: bool = False,
+                          disp_lanes=None):
     """Fused forces + integrate + bounce + skin-displacement pass (kernel
     K2).  Returns (xd', yd', vxd', vyd', disp2): new planes with FAR/0
     ghost blocks, and the max squared displacement of the new live
@@ -274,14 +283,22 @@ def forces_integrate_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
     step's rebin trigger).  ``refless=True``: the displacement is from the
     old positions (this step's move; the refless trigger sums the square
     roots), and ``ref_xd``/``ref_yd`` are not read: None or the (1, 1, 1)
-    placeholders of the refless posture.  ``launches`` counts both forms,
-    ``launches_refless`` the refless ones."""
+    placeholders of the refless posture.  ``disp_lanes=(lo, hi)`` takes
+    the max over the lanes [lo, hi) only (a slab's real columns; the
+    reference's ``disp_lanes``), every lane by default.  ``launches``
+    counts every form, ``launches_refless`` the refless ones and
+    ``launches_lanes`` those with a lane window."""
     refs = {} if refless else dict(ref_xd=ref_xd, ref_yd=ref_yd)
     dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                               rho_d=rho_d, **refs)
+    lo, hi = (0, grid.nx_pad) if disp_lanes is None else disp_lanes
+    if not 0 <= lo <= hi <= grid.nx_pad:
+        raise ValueError(f"disp_lanes {disp_lanes} outside [0, "
+                         f"{grid.nx_pad}]")
     if dev.type == "cpu":
         return forces_integrate_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
-                                      params, cfg, grid, occ, refless)
+                                      params, cfg, grid, occ, refless,
+                                      disp_lanes)
     c = _forces_consts(params)
     outs = [torch.empty_like(xd) for _ in range(4)]
     disp = torch.empty(1, dtype=torch.float32, device=dev)
@@ -292,18 +309,20 @@ def forces_integrate_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
         0 if refless else ref_yd.data_ptr(), occ.data_ptr(),
         *(o.data_ptr() for o in outs), disp.data_ptr(), grid.ny_pad,
         grid.cap, grid.nx_pad, grid.row_block, grid.n_row_blocks,
-        int(refless),
+        int(refless), lo, hi,
         *(float(c[k]) for k in ("h", "m_half", "spiky_c", "visc_mc")),
         float(params.rho_0), float(params.k), float(cfg.dt),
         float(cfg.x_min), float(cfg.x_max), float(cfg.bounce),
         float(cfg.floor_y))
     forces_integrate_cuda.launches += 1
     forces_integrate_cuda.launches_refless += int(refless)
+    forces_integrate_cuda.launches_lanes += int(disp_lanes is not None)
     return (*outs, disp[0])
 
 
 forces_integrate_cuda.launches = 0
 forces_integrate_cuda.launches_refless = 0
+forces_integrate_cuda.launches_lanes = 0
 
 
 # ---------------------------------------------------------------------------

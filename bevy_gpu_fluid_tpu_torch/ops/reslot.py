@@ -1,5 +1,5 @@
 """Dense local rebinning ("reslot"): sort-free Verlet rebuilds (port of
-``bevy_gpu_fluid_tpu/ops/reslot.py``, single-chip posture).
+``bevy_gpu_fluid_tpu/ops/reslot.py``).
 
 Between deferred rebins the Verlet skin bounds every live particle's
 displacement to less than one cell, so at rebin time its true cell is
@@ -9,6 +9,14 @@ neighbourhood, in (kj, dx, dy) candidate order, and compacts them into its
 ``cap`` slots.  Matches beyond ``cap`` are dropped and show in the returned
 per-cell counts.  Particle identity rides along in the int32 ``idx_d``
 plane (-1 = empty).
+
+A candidate's cell is ``floor((p - origin) / cell_size)``, its x clipped to
+[clip_lo, clip_hi] and its y to [0, ny-1].  The single-chip rebin takes the
+grid's origin and [0, nx-1]; a slab of the sharded solver passes its own
+origin and [-1, nx], so a particle that left the slab lands in the ghost
+column on its exit side (``parallel/shard_verlet.py`` moves it to the
+neighbour).  K3's and K6's wrappers and twins and ``reslot_planar`` take
+``clip_lo``, ``clip_hi`` and ``origin``, and the kernels take them as data.
 
 ``reslot_cuda`` is the wrapper of kernel K3 (``csrc/reslot.cu``), which
 replaces the TPU kernel ``_reslot_kernel`` (reslot.py:203).
@@ -80,12 +88,29 @@ def row_kmax(occ: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
     return km[:, None, None]
 
 
-def _cell_of(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D, live):
-    """Clipped cell coords of candidate positions, -9 for dead slots (the
-    clip alone would resurrect FAR into the boundary cells)."""
+def cell_args(grid: GridSpec2D, clip_lo: int = 0, clip_hi: int | None = None,
+              origin=None):
+    """(clip_lo, clip_hi, origin_x, origin_y) of a rebin, the origin as
+    float32 values: the grid's own by default, its x clip [0, nx-1].
+    Raises ValueError for a clip outside [-1, nx], whose cells would fall
+    off the ghost columns."""
+    clip_hi = grid.nx - 1 if clip_hi is None else clip_hi
+    if not -1 <= clip_lo <= clip_hi <= grid.nx:
+        raise ValueError(f"clip [{clip_lo}, {clip_hi}] outside [-1, "
+                         f"{grid.nx}]")
+    ox, oy = (grid.origin_x, grid.origin_y) if origin is None else origin
+    return clip_lo, clip_hi, np.float32(ox), np.float32(oy)
+
+
+def _cell_of(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D, live,
+             cells=None):
+    """Clipped cell coords of candidate positions (``cells`` from
+    ``cell_args``, the single-chip clip and origin by default), -9 for dead
+    slots (the clip alone would resurrect FAR into the boundary cells)."""
+    clip_lo, clip_hi, ox, oy = cells or cell_args(grid)
     inv = inv_cell(grid)
-    cx = cell_index(x, grid.origin_x, inv, 0, grid.nx - 1)
-    cy = cell_index(y, grid.origin_y, inv, 0, grid.ny - 1)
+    cx = cell_index(x, ox, inv, clip_lo, clip_hi)
+    cy = cell_index(y, oy, inv, 0, grid.ny - 1)
     return torch.where(live, cx, -9), torch.where(live, cy, -9)
 
 
@@ -113,7 +138,8 @@ def _targets(grid: GridSpec2D, device):
     return tgt_cx, tgt_cy, kiota
 
 
-def reslot_torch(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
+def reslot_torch(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D,
+                 clip_lo: int = 0, clip_hi: int | None = None, origin=None):
     """Plain PyTorch twin of kernel K3 (the reference's ``reslot_xla``):
     rolled views, one-hot select per candidate.  Returns (xd, yd, vxd, vyd,
     idx_d, counts) with counts int32 [ny_pad, nx_pad]."""
@@ -121,7 +147,8 @@ def reslot_torch(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
     shape = xd.shape
     dev = xd.device
     tgt_cx, tgt_cy, kiota = _targets(grid, dev)
-    ccx, ccy = _cell_of(xd, yd, grid, xd < FAR * 0.5)
+    ccx, ccy = _cell_of(xd, yd, grid, xd < FAR * 0.5,
+                        cell_args(grid, clip_lo, clip_hi, origin))
 
     out_x = torch.full(shape, FAR, dtype=torch.float32, device=dev)
     out_y = torch.full(shape, FAR, dtype=torch.float32, device=dev)
@@ -144,14 +171,20 @@ def reslot_torch(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
     return out_x, out_y, out_vx, out_vy, out_i, cnt[:, 0, :].to(torch.int32)
 
 
-def reslot_cuda(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
+def reslot_cuda(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D,
+                clip_lo: int = 0, clip_hi: int | None = None, origin=None):
     """Dense local rebin; same contract as ``reslot_torch``.  CUDA tensors
     launch kernel K3 (``csrc/reslot.cu``); CPU tensors take the twin.  The
-    slot-loop bounds are recomputed from the input planes."""
+    slot-loop bounds are recomputed from the input planes.  ``launches``
+    counts every launch, ``launches_clip`` those given a clip or an
+    origin (a slab's rebin)."""
+    custom = (clip_lo, clip_hi, origin) != (0, None, None)
     dev = _build.check_planes(grid, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                               idx_d=idx_d)
+    clip_lo, clip_hi, ox, oy = cell_args(grid, clip_lo, clip_hi, origin)
     if dev.type == "cpu":
-        return reslot_torch(xd, yd, vxd, vyd, idx_d, grid)
+        return reslot_torch(xd, yd, vxd, vyd, idx_d, grid, clip_lo, clip_hi,
+                            (ox, oy))
     occ = block_kmax3(xd, grid)
     outs = [torch.empty_like(xd) for _ in range(4)] + [torch.empty_like(idx_d)]
     cnt = torch.empty((grid.ny_pad, grid.nx_pad), dtype=torch.int32,
@@ -161,14 +194,15 @@ def reslot_cuda(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D):
         vyd.data_ptr(), idx_d.data_ptr(), occ.data_ptr(),
         *(o.data_ptr() for o in outs), cnt.data_ptr(),
         grid.ny_pad, grid.cap, grid.nx_pad, grid.row_block,
-        grid.n_row_blocks, grid.row0, grid.nx, grid.ny,
-        float(np.float32(grid.origin_x)), float(np.float32(grid.origin_y)),
-        float(inv_cell(grid)))
+        grid.n_row_blocks, grid.row0, clip_lo, clip_hi, grid.ny, float(ox),
+        float(oy), float(inv_cell(grid)))
     reslot_cuda.launches += 1
+    reslot_cuda.launches_clip += int(custom)
     return (*outs, cnt)
 
 
 reslot_cuda.launches = 0
+reslot_cuda.launches_clip = 0
 
 
 def make_reslot(grid: GridSpec2D):
@@ -208,7 +242,8 @@ def check_code_dtype(code_dtype, cap: int) -> None:
 
 
 def select_torch(xd, yd, grid: GridSpec2D, occ=None,
-                 code_dtype=torch.int32):
+                 code_dtype=torch.int32, clip_lo: int = 0,
+                 clip_hi: int | None = None, origin=None):
     """Plain PyTorch twin of kernel K6, in ``reslot_torch``'s form, with
     the kernel's per-row-block slot bound from ``occ`` (the planes'
     ``block_kmax3``, computed when not given).  Returns (code, counts):
@@ -219,7 +254,8 @@ def select_torch(xd, yd, grid: GridSpec2D, occ=None,
         occ = block_kmax3(xd, grid)
     tgt_cx, tgt_cy, kiota = _targets(grid, xd.device)
     kmax = row_kmax(occ, grid)
-    ccx, ccy = _cell_of(xd, yd, grid, xd < FAR * 0.5)
+    ccx, ccy = _cell_of(xd, yd, grid, xd < FAR * 0.5,
+                        cell_args(grid, clip_lo, clip_hi, origin))
     code = torch.full(xd.shape, _CODE_EMPTY, dtype=torch.int32,
                       device=xd.device)
     cnt = torch.zeros((xd.shape[0], 1, xd.shape[2]), dtype=torch.int64,
@@ -237,31 +273,38 @@ def select_torch(xd, yd, grid: GridSpec2D, occ=None,
 
 
 def select_cuda(xd, yd, grid: GridSpec2D, occ=None,
-                code_dtype=torch.int32):
+                code_dtype=torch.int32, clip_lo: int = 0,
+                clip_hi: int | None = None, origin=None):
     """The planar rebin's routing pass; same contract as ``select_torch``.
     CUDA tensors launch kernel K6 (``csrc/select.cu``); CPU tensors take
     the twin.  ``occ`` (the planes' ``block_kmax3``) is computed when not
-    given."""
+    given.  ``launches`` counts every launch, ``launches_clip`` those given
+    a clip or an origin."""
     check_code_dtype(code_dtype, grid.cap)
+    custom = (clip_lo, clip_hi, origin) != (0, None, None)
     if occ is None:
         occ = block_kmax3(xd, grid)
     dev = _build.check_planes(grid, occ, xd=xd, yd=yd)
+    clip_lo, clip_hi, ox, oy = cell_args(grid, clip_lo, clip_hi, origin)
     if dev.type == "cpu":
-        return select_torch(xd, yd, grid, occ, code_dtype)
+        return select_torch(xd, yd, grid, occ, code_dtype, clip_lo, clip_hi,
+                            (ox, oy))
     code = torch.empty(grid.plane_shape, dtype=code_dtype, device=dev)
     cnt = torch.empty((grid.ny_pad, grid.nx_pad), dtype=torch.int32,
                       device=dev)
     _build.launch(
         "bgf_select", dev, xd.data_ptr(), yd.data_ptr(), occ.data_ptr(),
         code.data_ptr(), cnt.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad,
-        grid.row_block, grid.n_row_blocks, grid.row0, grid.nx, grid.ny,
-        code.element_size(), float(np.float32(grid.origin_x)),
-        float(np.float32(grid.origin_y)), float(inv_cell(grid)))
+        grid.row_block, grid.n_row_blocks, grid.row0, clip_lo, clip_hi,
+        grid.ny, code.element_size(), float(ox), float(oy),
+        float(inv_cell(grid)))
     select_cuda.launches += 1
+    select_cuda.launches_clip += int(custom)
     return code, cnt
 
 
 select_cuda.launches = 0
+select_cuda.launches_clip = 0
 
 
 def _decode(code: torch.Tensor):
@@ -376,9 +419,11 @@ def apply_planes(planes: list, code, occ, grid: GridSpec2D) -> list:
 
 
 def reslot_planar(xd, yd, vxd, vyd, idx_d, grid: GridSpec2D,
-                  code_dtype=torch.int32):
+                  code_dtype=torch.int32, clip_lo: int = 0,
+                  clip_hi: int | None = None, origin=None):
     """Plane-at-a-time dense local rebin (K6, then ``apply_planes``): the
     same contract, and the same outputs bit for bit, as ``reslot_cuda``."""
     occ = block_kmax3(xd, grid)
-    code, cnt = select_cuda(xd, yd, grid, occ, code_dtype)
+    code, cnt = select_cuda(xd, yd, grid, occ, code_dtype, clip_lo, clip_hi,
+                            origin)
     return (*apply_planes([xd, yd, vxd, vyd, idx_d], code, occ, grid), cnt)

@@ -18,13 +18,17 @@ Two granularities:
   ``occ`` the planes' ``block_kmax3``) and raises ValueError where it
   fails, instead of letting K1, K2, K5, K6 and K8 mis-sum it.
 
-The multi-device ``save_sharded``/``load_sharded`` wait for the slab
-decomposition.
+* ``save_sharded``/``load_sharded``: the slab solver's RESIDENT
+  ``ShardedDenseSim`` (``parallel/shard_verlet.py``) with its ``ShardSpec``,
+  in the reference's layout (each field stacked over the slabs, [D, ...];
+  the step counters as [D] arrays), which a ``ShardedSession.restore``
+  continues bitwise; ``load_sharded`` holds each slab to the tile premise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -156,11 +160,13 @@ def save_dense(path: str, sim, grid: GridSpec2D, params: FluidParams,
     np.savez(_norm(path), **arrays)
 
 
-def _check_tile_premise(sim, grid: GridSpec2D) -> None:
+def _check_tile_premise(sim, grid: GridSpec2D, bounds=None) -> None:
     """Raise ValueError unless the planes keep the tile kernels' premise:
     live slots (x < FAR/2) a prefix of each cell's slots, dead slots
     exactly FAR (x, y) with zero velocity and index -1, and ``occ`` the
-    planes' ``block_kmax3``."""
+    planes' ``block_kmax3`` (or, given ``bounds``, int32 [3, nb] tensors,
+    at least each of them: a slab's occ must bound its neighbours' cells
+    too)."""
     from ..ops import reslot as reslot_ops
     from ..ops.binning import FAR
     live = sim.xd < FAR * 0.5
@@ -175,7 +181,12 @@ def _check_tile_premise(sim, grid: GridSpec2D) -> None:
             and bool((sim.idx_d[dead] == -1).all())):
         raise ValueError("checkpoint planes: a dead slot is not FAR with "
                          "zero velocity and index -1")
-    if not torch.equal(sim.occ, reslot_ops.block_kmax3(sim.xd, grid)):
+    if bounds is not None:
+        if not all(bool((sim.occ >= b).all()) for b in bounds):
+            raise ValueError("checkpoint planes: occ does not bound the "
+                             "slab's and its neighbours' cells (the slot "
+                             "loops would miss live slots)")
+    elif not torch.equal(sim.occ, reslot_ops.block_kmax3(sim.xd, grid)):
         raise ValueError("checkpoint planes: occ is not the planes' "
                          "block_kmax3 (the slot loops would miss live slots)")
 
@@ -215,3 +226,82 @@ def load_dense(path: str, device="cuda"):
     sim = DenseSim(**kw)
     _check_tile_premise(sim, grid)
     return sim, grid, params, cfg, n
+
+
+# ---------------------------------------------------------------------------
+# Resident-state checkpointing of the slab solver (ShardedDenseSim)
+# ---------------------------------------------------------------------------
+
+_SPEC_META = ("n_devices", "nx_local", "global_x0", "capacity", "mig_cap")
+
+
+def save_sharded(path: str, sim, spec, params: FluidParams,
+                 cfg: IntegrateConfig, n: int,
+                 fingerprint: dict | None = None) -> None:
+    """Snapshot a slab solver's ``ShardedDenseSim`` with its ``ShardSpec``,
+    physics and particle count (the reference's ``save_sharded`` keys:
+    every per-slab field stacked to [D, ...], ``step`` a scalar).
+    ``fingerprint`` as in ``save_dense``."""
+    D = sim.n_slabs
+    arrays = {}
+    for f in dataclasses.fields(sim):
+        v = getattr(sim, f.name)
+        if f.name == "step":
+            arrays["sim.step"] = np.asarray(v, dtype=np.int32)
+        elif isinstance(v, list):
+            arrays[f"sim.{f.name}"] = np.stack([_np(t) for t in v])
+        else:              # age, rebin count: the reference keeps one a slab
+            arrays[f"sim.{f.name}"] = np.full((D,), v, dtype=np.int32)
+    arrays.update({f"spec.local_grid.{k}": np.asarray(
+        getattr(spec.local_grid, k)) for k in _GRID_META})
+    arrays.update({f"spec.{k}": np.asarray(getattr(spec, k))
+                   for k in _SPEC_META})
+    arrays.update(_arrays("params.", params))
+    arrays.update(_arrays("cfg.", cfg))
+    arrays["meta.n"] = np.asarray(n)
+    arrays.update({f"{_FP_PREFIX}{k}": np.asarray(v)
+                   for k, v in (fingerprint or {}).items()})
+    np.savez(_norm(path), **arrays)
+
+
+def load_sharded(path: str, mesh):
+    """Returns (ShardedDenseSim with slab d on ``mesh.devices[d]``,
+    ShardSpec, FluidParams, IntegrateConfig, n).  Raises ValueError when
+    the mesh has another slab count, or a slab's planes break the tile
+    premise (``_check_tile_premise``; a slab's occ must bound its own cells
+    and its neighbours' real cells)."""
+    from ..ops import reslot as reslot_ops
+    from ..ops.binning import FAR
+    from ..parallel.shard import ShardSpec
+    from ..parallel.shard_verlet import ShardedDenseSim, slabs_from_stacks
+    with np.load(_norm(path)) as z:
+        spec = ShardSpec(
+            local_grid=_grid_from(z, "spec.local_grid."),
+            **{k: (float(z[f"spec.{k}"]) if k == "global_x0"
+                   else int(z[f"spec.{k}"])) for k in _SPEC_META})
+        raw = {k[4:]: np.array(z[k]) for k in z.files if k.startswith("sim.")}
+        params = _scalars(z, "params.", FluidParams)
+        cfg = _scalars(z, "cfg.", IntegrateConfig)
+        n = int(z["meta.n"])
+    D = raw["xd"].shape[0]
+    if D != mesh.n or D != spec.n_devices:
+        raise ValueError(f"checkpoint has {D} slabs (spec "
+                         f"{spec.n_devices}), the mesh {mesh.n}")
+    g = spec.local_grid
+    nxl = spec.nx_local
+    kw = slabs_from_stacks(raw, mesh.devices)
+    own = [reslot_ops.block_kmax3(x, g) for x in kw["xd"]]
+
+    def real_bound(x):
+        x = x.clone()
+        x[:, :, 0] = FAR
+        x[:, :, nxl + 1:] = FAR
+        return reslot_ops.block_kmax3(x, g)
+    nbr = [real_bound(x) for x in kw["xd"]]
+    near = [[nbr[e].to(own[d].device) for e in (d - 1, d + 1)
+             if 0 <= e < D] for d in range(D)]
+    sim = ShardedDenseSim(**kw)
+    for d in range(D):
+        _check_tile_premise(SimpleNamespace(**sim.slab(d)), g,
+                            bounds=[own[d]] + near[d])
+    return sim, spec, params, cfg, n

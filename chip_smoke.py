@@ -86,6 +86,28 @@ with the validator — then checks them:
     steps bitwise an uninterrupted run in the default and the refless
     posture, a restore under the other trigger refused; and
     ``Simulation.save``/``load`` of the 5,041 scene;
+16. the slab decomposition on the one card (``parallel/``, a
+    ``SlabMesh`` of D slabs all on cuda:0, phase 4's 1M scene): K2 with a
+    slab's lane window, K3 and K6 with its clip [-1, nx_local] and world
+    origin, on the 1M planes of a D = 2 slab where the rebin trigger fires
+    (ghost columns cleared as the rebin clears them): K3 and K6 bitwise
+    their twins (int32 codes), the planar rebin bitwise K3, K2's planes
+    bitwise K2 without the window and its max bitwise the max over its own
+    outputs in the window, within K2's tolerances of its twin; each timed
+    with its bound (the kernel table's ``forces_integrate_lanes``,
+    ``reslot_clip`` and ``select_clip`` rows); D = 4 against D = 2
+    against the single-card ``Session`` per particle by idx (|dx| <= 1e-6,
+    |dv| <= 1e-4, the JAX identity bars) after a window of 25-step chunks
+    in which every run has rebinned at least twice;
+    ``ShardedSession`` at D = 1, 2 and 4: 300 + 600 steps, counters zeroed
+    before the 600 (K1 and K2 D times per step, K2 always with its window,
+    K3 D times per rebin and always with the slab's clip, K5 never),
+    overflow, dropped and lost 0, every idx once; ms/step, rebins, a
+    profiled breakdown and the idle share; the planar ``ShardedSession``
+    bitwise the fused one after 300 steps (K6 D and K7 5 D times per
+    rebin, K3 never); a frame across both slabs against the single-card
+    frame of the same particles (u8 within 1, 99% equal; K4 once per
+    slab); ``save`` -> ``restore`` -> 100 steps bitwise;
 14. run LAST, after every earlier Session is gone and the cache emptied:
     the postures' peak memory in plane-footprints (peak allocated bytes
     over one plane) on a 16M-particle ``tools/bench_scale.py`` scene, over
@@ -159,6 +181,10 @@ BREAKDOWN_STEPS = 60   # profiled 1M steps after the main path (~10 rebins)
 SEGMENTED_STEPS = 300  # phase 15: segmented vs standard 1M Sessions
 REFLESS_STEPS = 120    # phase 15: refless vs ref-based (the JAX test's 120)
 RESTORE_STEPS = 100    # phase 15: steps after a restore
+SLAB_COUNTS = (1, 2, 4)   # phase 16: slabs of the timed runs
+SLAB_IDENTITY_CHUNK = 25  # phase 16: D = 4 vs D = 2 vs one Session, run
+SLAB_IDENTITY_REBINS = 2  # in chunks until each has rebinned this often
+SLAB_IDENTITY_MAX = 300   # steps at most
 PROBE_N = 16_000_000   # phase 14: the footprint probe's scene
 CEILING_STEPS = 100    # phase 14: measured steps of the ceiling run
 CEILING_PROFILED = 8   # phase 14: profiled ceiling steps
@@ -1390,7 +1416,10 @@ def counter_wrappers() -> dict:
     return {"density": (cuda_solver.density_cuda, "launches"),
             "forces_integrate": (k2, "launches"),
             "forces_integrate_refless": (k2, "launches_refless"),
+            "forces_integrate_lanes": (k2, "launches_lanes"),
             "reslot": (reslot.reslot_cuda, "launches"),
+            "reslot_clip": (reslot.reslot_cuda, "launches_clip"),
+            "select_clip": (reslot.select_cuda, "launches_clip"),
             "field_raster": (raster.field_density_cuda, "launches"),
             "mono_step": (cuda_solver.mono_step_cuda, "launches"),
             "forces": (cuda_solver.forces_cuda, "launches"),
@@ -1624,6 +1653,368 @@ def ceiling_mechanisms_1m(kernels: list, card: str) -> None:
         print(f"#   Simulation.save/load round trip, 5,041 particles after "
               f"20 steps: {same}", flush=True)
         check(same, "Simulation.save/load round trip")
+
+
+def slab_mesh(kernels: list, card: str) -> None:
+    """Phase 16: the slab decomposition (``parallel/``) on the one card."""
+    import tempfile
+
+    import bevy_gpu_fluid_tpu_torch as bt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.ops.binning import (FAR, bin_particles,
+                                                      to_dense)
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import \
+        ShardedSession
+    from bevy_gpu_fluid_tpu_torch.render import raster
+
+    dev = torch.device("cuda", 0)
+    params = bt.FluidParams.demo()
+    extent = N_SIDE * 0.04
+    cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=extent + 1.0)
+    bounds = dict(h=0.045 * 1.5, x_min=-1.0, x_max=extent + 1.0,
+                  y_max=extent * 1.1 + 1.0)
+    grid = vs.default_grid(0.045, -1.0, extent + 1.0,
+                           y_max=extent * 1.1 + 1.0)
+    state = bt.init_grid(N_SIDE, N_SIDE, 0.04, dev)
+    n = state.n
+    specs = {D: shard.ShardSpec.build(n_devices=D, capacity=n, **bounds)
+             for D in SLAB_COUNTS}
+
+    def session(D, **kw):
+        return ShardedSession(state, params, cfg, specs[D],
+                              SlabMesh([dev] * D), **kw)
+
+    # ---- D = 4 vs D = 2 vs the single-card Session, by idx, over a window
+    # in which every run rebins (the collective rebin against the Session's)
+    one = vs.Session(state, params, cfg, grid, device=dev)
+    steps = 0
+    while (one.sim.rebin_count - 1 < SLAB_IDENTITY_REBINS
+           and steps < SLAB_IDENTITY_MAX):
+        one.run(SLAB_IDENTITY_CHUNK)
+        steps += SLAB_IDENTITY_CHUNK
+    ref = one.state()
+    ident = {}
+    for D in (2, 4):
+        sess = session(D)
+        sess.run(steps)
+        ident[D] = (sess.state(), sess.rebin_count - 1)
+    rebins = (ident[2][1], ident[4][1], one.sim.rebin_count - 1)
+    pairs = (("D=4 vs D=2", ident[4][0], ident[2][0]),
+             ("D=2 vs one card", ident[2][0], ref),
+             ("D=4 vs one card", ident[4][0], ref))
+    for label, a, b in pairs:
+        dx = max(float((a.x - b.x).abs().max()),
+                 float((a.y - b.y).abs().max()))
+        dv = max(float((a.vx - b.vx).abs().max()),
+                 float((a.vy - b.vy).abs().max()))
+        print(f"# phase 16: {label} after {steps} steps at 1M (rebins D=2 "
+              f"{rebins[0]}, D=4 {rebins[1]}, one card {rebins[2]}), per "
+              f"particle by idx: max |dx| {dx:.3e} (<= 1e-6), max |dv| "
+              f"{dv:.3e} (<= 1e-4)", flush=True)
+        check(dx <= 1e-6 and dv <= 1e-4,
+              f"slab identity {label}: dx {dx} dv {dv}")
+    check(min(rebins) >= SLAB_IDENTITY_REBINS,
+          f"slab identity window holds rebins {rebins}")
+    del one, ident, ref, pairs, a, b
+
+    # ---- the timed runs at D = 1, 2, 4; the variants on a D = 2 slab
+    runs = {}
+    for D in SLAB_COUNTS:
+        sess = session(D)
+        sess.run(WARM_STEPS)
+        torch.cuda.synchronize()
+        snap = sess.sim           # the steps and rebins make new tensors
+        if D == 2:
+            variants_on_slab(kernels, card, sess, params, cfg)
+            sess.sim = snap
+        zero_launches()
+        rebins0 = sess.rebin_count
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        sess.run(MAIN_STEPS)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        rebins = sess.rebin_count - rebins0
+        ms = start.elapsed_time(end) / MAIN_STEPS
+        ids = torch.cat([a[:, :, 1:specs[D].nx_local + 1].reshape(-1)
+                         for a in sess.sim.idx_d] + list(sess.sim.sidx))
+        ids = torch.sort(ids[ids >= 0]).values
+        once = ids.numel() == n and torch.equal(
+            ids, torch.arange(n, dtype=ids.dtype, device=ids.device))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sess.run(BREAKDOWN_STEPS)
+            torch.cuda.synchronize()
+        by_kernel = sorted(
+            ((e.device_time_total / 1e3 / BREAKDOWN_STEPS, e.count,
+              e.key.replace("(anonymous namespace)::", "")
+              .replace("void ", "").split("(")[0].split("<")[0][-40:])
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and e.device_time_total > 0), reverse=True)
+        busy = sum(k[0] for k in by_kernel)
+        runs[D] = dict(ms=ms, rebins=rebins, launches=launches)
+        print(f"# phase 16: ShardedSession D={D} ({D} slabs of "
+              f"{specs[D].local_grid.plane_shape} on cuda:0), "
+              f"{WARM_STEPS} + {MAIN_STEPS} steps: {ms:.4f} ms/step (CUDA "
+              f"events; host {wall / MAIN_STEPS * 1e3:.4f}) = "
+              f"{n / ms * 1e3 / 1e6:.1f}M particle-steps/s on {card}; "
+              f"rebins {rebins}; overflow {sess.overflow}, dropped "
+              f"{sess.dropped}, lost {sess.lost}, alive {sess.alive}; every "
+              f"idx once: {once}; launches per slab K1 "
+              f"{launches['density'] / D:g}, K2 "
+              f"{launches['forces_integrate_lanes'] / D:g} (with the lane "
+              f"window), K3 {launches['reslot_clip'] / D:g} (with the "
+              f"clip); all {launches}; breakdown over "
+              f"{BREAKDOWN_STEPS} steps: busy {busy:.4f} ms/step, idle "
+              f"share {1 - busy / ms:.3f}; " + "; ".join(
+                  f"{name} {t:.4f} ms x{c}" for t, c, name in by_kernel[:6]),
+              flush=True)
+        check(sess.overflow == sess.dropped == sess.lost == 0 and once,
+              f"D={D}: overflow/dropped/lost or idx")
+        check(launches["density"] == D * MAIN_STEPS
+              and launches["forces_integrate"] == D * MAIN_STEPS
+              and launches["forces_integrate_lanes"] == D * MAIN_STEPS,
+              f"D={D}: K1/K2 launches {launches}")
+        check(launches["reslot"] == launches["reslot_clip"] == D * rebins
+              and rebins >= 2, f"D={D}: K3 launches {launches}, {rebins}")
+        check(launches["mono_step"] == launches["select"] == 0,
+              f"D={D}: K5/K6 launched {launches}")
+        if D == 2:
+            for k in kernels:
+                if k["name"] in ("forces_integrate_lanes", "reslot_clip"):
+                    k["launches"] = launches[k["name"]]
+                    k["launches_path"] = (f"D=2 ShardedSession, "
+                                          f"{MAIN_STEPS} steps")
+            two = sess
+        del sess, snap
+    print(f"# phase 16: ms/step at 1M on {card}: " + ", ".join(
+        f"D={D} {runs[D]['ms']:.4f}" for D in SLAB_COUNTS)
+        + " (D slabs on one card: no gain is claimed)", flush=True)
+
+    # ---- planar vs fused at D = 2, from the same state
+    fused = session(2)
+    fused.run(WARM_STEPS)
+    zero_launches()
+    planar = session(2, planar_rebin=True)
+    planar.run(WARM_STEPS)
+    launches = read_launches()
+    rb = planar.rebin_count - 1
+    same = all(
+        all(torch.equal(u, v) for u, v in zip(x, y))
+        if isinstance(x, list) and x and isinstance(x[0], torch.Tensor)
+        else x == y
+        for x, y in ((getattr(fused.sim, f.name), getattr(planar.sim, f.name))
+                     for f in dataclasses.fields(fused.sim)))
+    print(f"# phase 16: planar ShardedSession D=2 bitwise the fused one "
+          f"after {WARM_STEPS} steps: {same} ({rb} rebins; launches "
+          f"K6 {launches['select']} K6 clip {launches['select_clip']} K7 "
+          f"{launches['apply_code']} K3 {launches['reslot']})", flush=True)
+    check(same and rb >= 2, "planar sharded rebin vs fused")
+    check(launches["select"] == launches["select_clip"] == 2 * rb
+          and launches["apply_code"] == 10 * rb
+          and launches["reslot"] == 0, f"planar launches {launches}")
+    for k in kernels:
+        if k["name"] == "select_clip":     # K6 runs on the planar path
+            k["launches"] = launches["select_clip"]
+            k["launches_path"] = (f"planar D=2 ShardedSession, "
+                                  f"{WARM_STEPS} steps")
+    del fused, planar
+
+    # ---- a frame across both slabs vs the single-card frame
+    zero_launches()
+    img = two.frame()
+    k4 = read_launches()["field_raster"]
+    fs = two.state()
+    gg = specs[2].global_grid()
+    b = bin_particles(fs.x, fs.y, gg)
+    img1 = raster.field_frame(to_dense(b, fs.x, FAR), to_dense(b, fs.y, FAR),
+                              params, gg)
+    diff = (img.int() - img1.int()).abs()
+    wet = img.int().sum(-1) > 10
+    half = img.shape[1] // 2
+    seam = bool(wet[:, half - 1].any() and wet[:, half].any())
+    eq = float((diff == 0).float().mean())
+    print(f"# phase 16: frame of the D=2 session {tuple(img.shape)} vs the "
+          f"single-card frame of its particles: max |du8| "
+          f"{int(diff.max())} (<= 1), equal {eq:.5f} (>= 0.99), wet on "
+          f"both sides of the seam: {seam}; K4 launches {k4}", flush=True)
+    check(img.shape == img1.shape and int(diff.max()) <= 1 and eq >= 0.99
+          and seam and k4 == 2, "sharded frame")
+
+    # ---- save -> restore -> 100 steps, bitwise
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "slabs")
+        two.save(path)
+        two.run(RESTORE_STEPS)
+        back = ShardedSession.restore(path, SlabMesh([dev] * 2))
+        back.run(RESTORE_STEPS)
+        same = all(
+            all(torch.equal(u, v) for u, v in zip(x, y))
+            if isinstance(x, list) and x and isinstance(x[0], torch.Tensor)
+            else x == y
+            for x, y in ((getattr(two.sim, f.name), getattr(back.sim, f.name))
+                         for f in dataclasses.fields(two.sim)))
+        print(f"# phase 16: ShardedSession.save -> restore -> "
+              f"{RESTORE_STEPS} steps bitwise an uninterrupted run: {same} "
+              f"({os.path.getsize(path + '.npz') / 2**20:.1f} MiB)",
+              flush=True)
+        check(same, "sharded checkpoint round trip")
+    del two, back
+
+
+def variants_on_slab(kernels: list, card: str, sess, params, cfg) -> None:
+    """Phase 16's kernel variants on slab d of a D = 2 ShardedSession's 1M
+    planes at the step where its rebin trigger next fires: K2 with the
+    slab's lane window on the planes its step gives K2 (after the halo
+    fill and K1), K3 and K6 with the slab's clip and origin on the planes
+    its rebin gives them (ghost x and idx cleared)."""
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.ops import reslot
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+
+    steps = sess._steps
+    to_need = 0
+    while not steps.need(sess.sim):
+        sess.sim = steps.pure_step(sess.sim)
+        to_need += 1
+    spec, sim = sess.spec, sess.sim
+    g, nxl, d = spec.local_grid, spec.nx_local, 1
+    plane_b = 4.0 * g.ny_pad * g.cap * g.nx_pad
+    occ = sim.occ[d]
+    occ_b = 4.0 * occ.numel()
+    # K2 with the lane window, on the planes the step gives it
+    halo = shard.fill_ghost_cols_multi(
+        sess.mesh, list(zip(sim.xd, sim.yd, sim.vxd, sim.vyd)), nxl,
+        (1e9, 1e9, 0.0, 0.0))[d]
+    rho = cuda_solver.density_cuda(halo[0], halo[1], params, g, occ)
+    args = (*halo, rho, sim.ref_xd[d], sim.ref_yd[d], params, cfg, g, occ)
+    lanes = (1, nxl + 1)
+    k2 = lambda: cuda_solver.forces_integrate_cuda(*args, disp_lanes=lanes)
+    t2 = lambda: cuda_solver.forces_integrate_torch(*args, disp_lanes=lanes)
+    got, full, want = k2(), cuda_solver.forces_integrate_cuda(*args), t2()
+    same = all(bits_equal(a, b) for a, b in zip(got[:4], full[:4]))
+    live = (halo[0] < 5e8)[:, :, 1:nxl + 1]
+    ddx = (got[0] - sim.ref_xd[d])[:, :, 1:nxl + 1]
+    ddy = (got[1] - sim.ref_yd[d])[:, :, 1:nxl + 1]
+    own_max = torch.where(live, ddx * ddx + ddy * ddy, 0.0).amax()
+    pos_err = max(float((a - b).abs().max()) for a, b in zip(got[:2],
+                                                             want[:2]))
+    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
+    vel_err = max(float((a - b).abs().max()) for a, b in zip(got[2:4],
+                                                             want[2:4]))
+    d_err = abs(float(got[4]) - float(want[4]))
+    print(f"# phase 16: K2 with slab {d}'s lane window {lanes} on its 1M "
+          f"planes {g.plane_shape} ({to_need} steps to the next rebin): "
+          f"planes bitwise K2 without it: {same}; its max bitwise the max "
+          f"over its own outputs in the window: "
+          f"{bits_equal(got[4], own_max)}; vs twin |dx| {pos_err:.3e}, "
+          f"|dv| {vel_err:.3e} of {vscale:.3f}, disp2 {float(got[4]):.6e} "
+          f"vs {float(want[4]):.6e} (full plane {float(full[4]):.6e})",
+          flush=True)
+    check(same and bits_equal(got[4], own_max), "K2 lane window bitwise")
+    check(pos_err <= 1e-5 and vel_err <= 1e-4 * vscale
+          and d_err <= 1e-4 * float(want[4]), "K2 lane window vs twin")
+    need_taps, _ = tile_taps(halo[0], occ, g)
+    n_live = float((halo[0] < 5e8).sum())
+    kernels.append(dict(
+        name="forces_integrate_lanes", route="cuda",
+        source="bevy_gpu_fluid_tpu_torch/csrc/forces_integrate.cu",
+        replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:646",
+        max_abs_err=max(pos_err, vel_err, d_err),
+        ms=kernel_ms(k2, "forces_integrate_kernel", 50),
+        wrapper_ms=cuda_ms(k2, 50), plain_ms=cuda_ms(t2, 3),
+        library_ms=None, shape=list(g.plane_shape),
+        **bound(11 * plane_b + occ_b + 4,
+                need_taps * FORCE_OPS + n_live * 20)))
+    del got, full, want, halo, rho, args
+    # K3 and K6 with the clip and origin, on the planes the rebin gives them
+    xd = sim.xd[d].clone()
+    xd[:, :, 0] = 1e9
+    xd[:, :, nxl + 1] = 1e9
+    idx = sim.idx_d[d].clone()
+    idx[:, :, 0] = -1
+    idx[:, :, nxl + 1] = -1
+    planes = (xd, sim.yd[d], sim.vxd[d], sim.vyd[d], idx)
+    cell = dict(clip_lo=-1, clip_hi=nxl, origin=shard.slab_origin(spec, d))
+    k3 = lambda: reslot.reslot_cuda(*planes, g, **cell)
+    t3 = lambda: reslot.reslot_torch(*planes, g, **cell)
+    got, want = k3(), t3()
+    same3 = all(a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got, want))
+    capt = int((got[0][:, :, 0] < 5e8).sum()
+               + (got[0][:, :, nxl + 1] < 5e8).sum())
+    kocc = reslot.block_kmax3(xd, g)
+    k6 = lambda: reslot.select_cuda(xd, sim.yd[d], g, kocc, torch.int32,
+                                    **cell)
+    t6 = lambda: reslot.select_torch(xd, sim.yd[d], g, kocc, torch.int32,
+                                     **cell)
+    (code, cnt), (wcode, wcnt) = k6(), t6()
+    same6 = torch.equal(code, wcode) and torch.equal(cnt, wcnt)
+    planar = reslot.reslot_planar(*planes, g, torch.int32, **cell)
+    same_p = all(torch.equal(a, b) for a, b in zip(planar, got))
+    # the same planes with every live x nudged by up to +-0.05 (of a
+    # 0.0675 cell): particles cross both slab edges into the captures
+    gen = torch.Generator(device=xd.device).manual_seed(16)
+    nudge = (torch.rand(xd.shape, generator=gen, device=xd.device) - 0.5) * 0.1
+    xn = torch.where(xd < 5e8, xd + nudge, xd)
+    nplanes = (xn, *planes[1:])
+    ngot = reslot.reslot_cuda(*nplanes, g, **cell)
+    nwant = reslot.reslot_torch(*nplanes, g, **cell)
+    nocc = reslot.block_kmax3(xn, g)
+    nsel = reslot.select_cuda(xn, sim.yd[d], g, nocc, torch.int8, **cell)
+    nsel_t = reslot.select_torch(xn, sim.yd[d], g, nocc, torch.int8, **cell)
+    nplanar = reslot.reslot_planar(*nplanes, g, torch.int8, **cell)
+    same_n = (all(torch.equal(a, b) for a, b in zip(ngot, nwant))
+              and all(torch.equal(a, b) for a, b in zip(nsel, nsel_t))
+              and all(torch.equal(a, b) for a, b in zip(nplanar, ngot)))
+    ncapt = [int((ngot[0][:, :, lane] < 5e8).sum()) for lane in (0, nxl + 1)]
+    print(f"# phase 16: K3 with slab {d}'s clip [-1, {nxl}] and origin "
+          f"{float(cell['origin'][0]):.6f}: bitwise its twin: {same3}; "
+          f"{capt} particles captured in the ghost columns; K6 (int32 "
+          f"codes) bitwise its twin: {same6}; reslot_planar bitwise K3: "
+          f"{same_p}; x nudged by up to 0.05: K3, K6 (int8) and the "
+          f"planar rebin bitwise: {same_n}, captures left/right {ncapt} "
+          f"(slab 1 of 2: only its left edge is a seam)",
+          flush=True)
+    check(same3 and same6 and same_p and same_n and sum(ncapt) > 0,
+          "K3/K6 clip and origin bitwise")
+    del ngot, nwant, nsel, nsel_t, nplanar, xn, nplanes
+    rows = row_bounds(kocc.amax(dim=0), g)
+    cand = 9.0 * g.nx_pad * float(rows.sum())
+    cnt_b = 4.0 * g.ny_pad * g.nx_pad
+    xy_b = 2 * 4.0 * g.nx_pad * read_slots(rows, g.row_block,
+                                           g.ny_pad - g.row_block)
+    kernels.append(dict(
+        name="reslot_clip", route="cuda",
+        source="bevy_gpu_fluid_tpu_torch/csrc/reslot.cu",
+        replaces="bevy_gpu_fluid_tpu/ops/reslot.py:203", max_abs_err=0.0,
+        ms=kernel_ms(k3, "reslot_kernel", 20), wrapper_ms=cuda_ms(k3, 20),
+        plain_ms=cuda_ms(t3, 3), library_ms=None, shape=list(g.plane_shape),
+        **bound(10 * plane_b + occ_b + cnt_b, cand * RESLOT_OPS)))
+    kernels.append(dict(
+        name="select_clip", route="cuda",
+        source="bevy_gpu_fluid_tpu_torch/csrc/select.cu",
+        replaces="bevy_gpu_fluid_tpu/ops/reslot.py:393", max_abs_err=0.0,
+        ms=kernel_ms(k6, "select_kernel", 50), wrapper_ms=cuda_ms(k6, 50),
+        plain_ms=cuda_ms(t6, 3), library_ms=None, shape=list(g.plane_shape),
+        **bound(xy_b + 4.0 * code.numel() + cnt_b + occ_b,
+                cand * RESLOT_OPS)))
+    for k in kernels[-3:]:
+        print(f"#   {k['name']}: kernel {k['ms']:.4f} ms (profiler), wrapper "
+              f"{k['wrapper_ms']:.4f} ms, twin {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']} "
+              f"({k['bound_bytes'] / 1e6:.1f} MB, "
+              f"{k['bound_ops'] / 1e9:.3f} GFLOP) at {g.plane_shape} on "
+              f"{card}", flush=True)
 
 
 def footprints_and_ceiling(kernels: list, card: str) -> None:
@@ -1901,6 +2292,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     ceiling_mechanisms_1m(kernels, card)
+    gc.collect()
+    slab_mesh(kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

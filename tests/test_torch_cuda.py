@@ -682,3 +682,172 @@ def test_save_restore_bitwise_on_card(cuda, tmp_path, posture):
     other = {} if kw else {"refless_trigger": True}
     with pytest.raises(ValueError, match="refless"):
         vs.Session.restore(path, device=cuda, **other)
+
+
+# ---- the slab decomposition: K2's lane window, K3/K6 clip + origin --------
+
+def _sharded(device, D=2, steps=25, **kw):
+    """The 80 x 8 four-slab scene (kicked right across every slab
+    boundary) as a ShardedSession of D slabs on ``device``, after
+    ``steps``."""
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import \
+        ShardedSession
+    spec = shard.ShardSpec.build(h=0.045 * 1.5, x_min=-1.0, x_max=2.5,
+                                 y_max=3.0, n_devices=D, capacity=4096)
+    state = bt.init_grid(80, 8, 0.04, device)
+    state = state.replace(x=state.x - 0.98,
+                          vx=torch.full((state.n,), 4.0, device=device))
+    sess = ShardedSession(state, PARAMS, CFG, spec,
+                          SlabMesh([device] * D), **kw)
+    sess.run(steps)
+    return sess
+
+
+def test_eager_sharded_step_on_card_matches_cpu_twins(cuda):
+    """25 eager slab steps at D = 2 (``shard.make_sharded_step``: K1 + K8
+    per slab, the halos, migration packing) on the card against the same
+    steps on the CPU twins: slot owners and migrations exact, particles at
+    the eager step's tolerances; K1 and K8 once per slab and step."""
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    spec = shard.ShardSpec.build(h=0.045, x_min=-1.0, x_max=2.5, y_max=3.0,
+                                 n_devices=2, capacity=4096)
+    before = (cuda_solver.density_cuda.launches,
+              cuda_solver.forces_cuda.launches)
+    out = []
+    for device in (cuda, "cpu"):
+        state = bt.init_grid(80, 8, 0.04, device)
+        state = state.replace(x=state.x - 0.98,
+                              vx=torch.full((state.n,), 4.0, device=device))
+        mesh = SlabMesh([device] * 2)
+        step = shard.make_sharded_step(PARAMS, CFG, spec, mesh)
+        st = shard.shard_state(state, spec, mesh)
+        alive0 = [int(a.sum()) for a in st.alive]
+        for _ in range(25):
+            st, diag = step(st)
+        out.append((st, diag, alive0, state.n))
+    assert (cuda_solver.density_cuda.launches - before[0],
+            cuda_solver.forces_cuda.launches - before[1]) == (50, 50)
+    (a, da, alive0, n), (b, db, _, _) = out
+    assert da.alive_count == db.alive_count != alive0
+    assert da.dropped == db.dropped == [0, 0]
+    assert da.overflow == db.overflow
+    for d in range(2):
+        assert torch.equal(a.idx[d].cpu(), b.idx[d])
+        assert torch.equal(a.alive[d].cpu(), b.alive[d])
+    fa, fb = shard.to_fluid_state(a, n), shard.to_fluid_state(b, n)
+    assert float((fa.x.cpu() - fb.x).abs().max()) <= 1e-5
+    assert float((fa.vx.cpu() - fb.vx).abs().max()) <= 1e-4
+    assert float(((fa.rho.cpu() - fb.rho) / fb.rho).abs().max()) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def sharded_card(cuda):
+    return _sharded(cuda)
+
+
+def test_forces_integrate_disp_lanes(sharded_card):
+    """K2 with a slab's lane window: its planes bitwise K2's without it,
+    its max bitwise the max over its own outputs in the window (rounded
+    term by term), and within K2's tolerances of its twin."""
+    sess = sharded_card
+    nxl, g = sess.spec.nx_local, sess.spec.local_grid
+    for d in range(2):
+        s = sess.sim.slab(d)
+        xd, yd, vxd, vyd = (s[k].clone() for k in ("xd", "yd", "vxd", "vyd"))
+        rho = cuda_solver.density_cuda(xd, yd, PARAMS, g, s["occ"])
+        args = (xd, yd, vxd, vyd, rho, s["ref_xd"], s["ref_yd"], PARAMS,
+                CFG, g, s["occ"])
+        lanes = (1, nxl + 1)
+        got = cuda_solver.forces_integrate_cuda(*args, disp_lanes=lanes)
+        full = cuda_solver.forces_integrate_cuda(*args)
+        for a, b in zip(got[:4], full[:4]):
+            assert torch.equal(_bits(a), _bits(b))
+        live = (xd < 5e8)[:, :, 1:nxl + 1]
+        dx = (got[0] - s["ref_xd"])[:, :, 1:nxl + 1]
+        dy = (got[1] - s["ref_yd"])[:, :, 1:nxl + 1]
+        want_max = torch.where(live, dx * dx + dy * dy, 0.0).amax()
+        assert torch.equal(_bits(got[4]), _bits(want_max))
+        twin = cuda_solver.forces_integrate_torch(*args, disp_lanes=lanes)
+        assert float((got[0] - twin[0]).abs().max()) <= 1e-5
+        assert abs(float(got[4]) - float(twin[4])) <= 1e-4 * float(twin[4])
+
+
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int8])
+def test_reslot_and_select_clip_origin_bitwise(sharded_card, code_dtype):
+    """K3 and K6 with a slab's clip [-1, nx_local] and world origin on its
+    planes (ghost x and idx cleared, as the collective rebin does, then
+    nudged so particles cross into the capture columns): bitwise their
+    twins, and the planar rebin bitwise K3."""
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    sess = sharded_card
+    nxl, g = sess.spec.nx_local, sess.spec.local_grid
+    rng = np.random.default_rng(1)
+    for d in range(2):
+        s = sess.sim.slab(d)
+        xd = s["xd"].clone()
+        xd[:, :, 0] = FAR
+        xd[:, :, nxl + 1] = FAR
+        idx = s["idx_d"].clone()
+        idx[:, :, 0] = -1
+        idx[:, :, nxl + 1] = -1
+        live = xd < 5e8
+        shift = torch.from_numpy(rng.uniform(-0.05, 0.05, xd.shape)
+                                 .astype(np.float32)).to(xd.device)
+        xd = torch.where(live, xd + shift, xd)
+        planes = (xd, s["yd"], s["vxd"], s["vyd"], idx)
+        cell = dict(clip_lo=-1, clip_hi=nxl,
+                    origin=shard.slab_origin(sess.spec, d))
+        got = reslot.reslot_cuda(*planes, g, **cell)
+        want = reslot.reslot_torch(*planes, g, **cell)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        captured = int((got[0][:, :, 0] < 5e8).sum()
+                       + (got[0][:, :, nxl + 1] < 5e8).sum())
+        assert captured > 0
+        occ = reslot.block_kmax3(xd, g)
+        code = reslot.select_cuda(xd, s["yd"], g, occ, code_dtype, **cell)
+        tcode = reslot.select_torch(xd, s["yd"], g, occ, code_dtype, **cell)
+        assert torch.equal(code[0], tcode[0])
+        assert torch.equal(code[1], tcode[1])
+        planar = reslot.reslot_planar(*planes, g, code_dtype, **cell)
+        for a, b in zip(planar, got):
+            assert torch.equal(a, b)
+
+
+def test_sharded_session_on_card_matches_cpu_twins(cuda, sharded_card):
+    """A D=2 ShardedSession on the card against the same run on the CPU
+    (the kernels' twins): counters and slot assignment exact, particles by
+    idx at the Session gate's tolerances."""
+    a, b = sharded_card, _sharded("cpu")
+    assert a.rebin_count == b.rebin_count >= 3
+    assert (a.alive, a.overflow, a.dropped, a.lost) == \
+        (b.alive, b.overflow, b.dropped, b.lost) == \
+        (a.alive, 0, 0, 0)
+    for d in range(2):
+        assert torch.equal(a.sim.idx_d[d].cpu(), b.sim.idx_d[d])
+    sa, sb = a.state(), b.state()
+    assert float((sa.x.cpu() - sb.x).abs().max()) <= 1e-5
+    assert float((sa.vx.cpu() - sb.vx).abs().max()) <= 1e-4
+    assert float(((sa.rho.cpu() - sb.rho) / sb.rho).abs().max()) <= 1e-5
+
+
+def test_sharded_planar_bitwise_fused_on_card(cuda, sharded_card):
+    """The planar sharded rebin (K6 + 5 x K7, clip and origin) gives the
+    fused sharded run bit for bit; the launch counters say which ran."""
+    before = (reslot.reslot_cuda.launches, reslot.select_cuda.launches,
+              reslot.apply_code_cuda.launches)
+    b = _sharded(cuda, planar_rebin=True)
+    assert reslot.reslot_cuda.launches == before[0]
+    rebins = b.rebin_count - 1
+    assert reslot.select_cuda.launches - before[1] == 2 * rebins
+    assert reslot.apply_code_cuda.launches - before[2] == 10 * rebins
+    a = sharded_card
+    for f in dataclasses.fields(a.sim):
+        x, y = getattr(a.sim, f.name), getattr(b.sim, f.name)
+        if isinstance(x, list) and isinstance(x[0], torch.Tensor):
+            assert all(torch.equal(u, v) for u, v in zip(x, y)), f.name
+        else:
+            assert x == y, f.name

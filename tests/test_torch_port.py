@@ -277,7 +277,8 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.render.raster, "
             "bevy_gpu_fluid_tpu_torch.render.pump, "
             "bevy_gpu_fluid_tpu_torch.interact.impulse, "
-            "bevy_gpu_fluid_tpu_torch.core.simulation; "
+            "bevy_gpu_fluid_tpu_torch.core.simulation, "
+            "bevy_gpu_fluid_tpu_torch.parallel.sharded_session; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'bevy_gpu_fluid_tpu.')) "
             "or m == 'bevy_gpu_fluid_tpu']; "
