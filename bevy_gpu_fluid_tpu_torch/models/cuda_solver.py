@@ -179,7 +179,7 @@ def integrate(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y, cfg: IntegrateConfig,
 
 
 def integrate_into(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y,
-                   cfg: IntegrateConfig, refless: bool = False):
+                   cfg: IntegrateConfig, refless: bool = False, lanes=None):
     """``integrate`` of the unfused step's tail with the accelerations'
     planes as the velocities' outputs: ``ax`` and ``ay`` are TAKEN and come
     back holding vx and vy, x and y are new planes, and the arithmetic runs
@@ -187,7 +187,8 @@ def integrate_into(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y,
     slab's, not a plane's.  The same values as
     ``integrate`` bit for bit (elementwise, and a max).  ``refless``:
     the displacement is from the old positions (``ref_x``/``ref_y`` are
-    not read).  Returns (x, y, vx, vy, disp2)."""
+    not read); ``lanes`` as ``integrate``'s (a slab's real columns).
+    Returns (x, y, vx, vy, disp2)."""
     if refless:
         ref_x, ref_y = xi, yi
     x = torch.empty_like(xi)
@@ -198,7 +199,7 @@ def integrate_into(xi, yi, vxi, vyi, ax, ay, ref_x, ref_y,
         sl = slice(r, r + rows)
         xs, ys, vxs, vys, d = integrate(xi[sl], yi[sl], vxi[sl], vyi[sl],
                                         ax[sl], ay[sl], ref_x[sl],
-                                        ref_y[sl], cfg)
+                                        ref_y[sl], cfg, lanes)
         x[sl], y[sl], ax[sl], ay[sl] = xs, ys, vxs, vys
         disp.append(d)
     return x, y, ax, ay, torch.stack(disp).amax()
@@ -224,7 +225,8 @@ def density_cuda(xd, yd, params: FluidParams, grid: GridSpec2D,
     """Density stencil over the dense grid (kernel K1).  ``occ`` is the
     sim's cached ``block_kmax3``.  Returns rho_d with ghost blocks 0:
     written into ``out`` (a dead float32 plane, the reference's
-    ``rho_out``; every slot is written) when given, else a new plane."""
+    ``rho_out``; every slot is written) when given, else a new plane.
+    ``launches`` counts every launch, ``launches_out`` those into ``out``."""
     planes = dict(xd=xd, yd=yd) if out is None else dict(xd=xd, yd=yd,
                                                           out=out)
     dev = _build.check_planes(grid, occ, **planes)
@@ -238,10 +240,12 @@ def density_cuda(xd, yd, params: FluidParams, grid: GridSpec2D,
                   grid.nx_pad, grid.row_block, grid.n_row_blocks, float(h2),
                   float(coeff))
     density_cuda.launches += 1
+    density_cuda.launches_out += int(out is not None)
     return rho
 
 
 density_cuda.launches = 0
+density_cuda.launches_out = 0
 
 
 # ---------------------------------------------------------------------------
@@ -286,8 +290,10 @@ def forces_integrate_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
     placeholders of the refless posture.  ``disp_lanes=(lo, hi)`` takes
     the max over the lanes [lo, hi) only (a slab's real columns; the
     reference's ``disp_lanes``), every lane by default.  ``launches``
-    counts every form, ``launches_refless`` the refless ones and
-    ``launches_lanes`` those with a lane window."""
+    counts every form, ``launches_refless`` the refless ones,
+    ``launches_lanes`` those with a lane window and
+    ``launches_refless_lanes`` those with both (the sharded refless
+    trigger's)."""
     refs = {} if refless else dict(ref_xd=ref_xd, ref_yd=ref_yd)
     dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                               rho_d=rho_d, **refs)
@@ -317,12 +323,15 @@ def forces_integrate_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
     forces_integrate_cuda.launches += 1
     forces_integrate_cuda.launches_refless += int(refless)
     forces_integrate_cuda.launches_lanes += int(disp_lanes is not None)
+    forces_integrate_cuda.launches_refless_lanes += int(
+        refless and disp_lanes is not None)
     return (*outs, disp[0])
 
 
 forces_integrate_cuda.launches = 0
 forces_integrate_cuda.launches_refless = 0
 forces_integrate_cuda.launches_lanes = 0
+forces_integrate_cuda.launches_refless_lanes = 0
 
 
 # ---------------------------------------------------------------------------

@@ -216,18 +216,23 @@ def _chunk_init_body(carry: dict, chunk, grid: GridSpec2D,
     """Bin one chunk (x, y, vx, vy, idx; idx int32, original order) into
     the carry IN PLACE.  A particle's slot is its stable rank within the
     chunk plus its cell's count from the earlier chunks: the global stable
-    rank of the sort-based init, since chunks come in original order."""
+    rank of the sort-based init, since chunks come in original order.
+    Entries with idx -1 are dead (a slab's empty buffer slots, another
+    slab's particles): they rank in the void cell and are never stored.
+    ``grid`` carries the world origin (a slab's: ``shard.slab_grid``)."""
     x, y, vx, vy, idx = chunk
+    valid = idx >= 0
     cx, cy = cell_coords(x, y, grid)
     slot = carry["cnt"][cy, cx].to(torch.int64) + stable_rank(
-        cx + cy * grid.nx)
-    over = slot >= grid.cap
-    keep = ~over
+        torch.where(valid, cx + cy * grid.nx, grid.num_cells))
+    over = valid & (slot >= grid.cap)
+    keep = valid & ~over
     row, col, slot = cy[keep] + grid.row0, cx[keep] + 1, slot[keep]
     for name, v in (("xd", x), ("yd", y), ("vxd", vx), ("vyd", vy),
                     ("idx_d", idx)):
         carry[name][row, slot, col] = v[keep]
-    carry["cnt"].index_put_((cy, cx), torch.ones_like(cy, dtype=torch.int32),
+    carry["cnt"].index_put_((cy[valid], cx[valid]),
+                            torch.ones_like(cy[valid], dtype=torch.int32),
                             accumulate=True)
     carry["overflow"] += int(over.sum())
     if collect_spill:
@@ -684,6 +689,26 @@ def step_until(sim: DenseSim, k: int, pure_step, need):
     return sim, done, pending
 
 
+def run_segmented(owner, n_steps: int, chunk: int | None, pure_step, need,
+                  rebin) -> None:
+    """The segmented driver of ``Session`` and ``ShardedSession``
+    (``owner``, whose ``sim`` it advances n_steps): ``step_until``
+    segments of at most ``chunk`` steps, and a rebin wherever a segment
+    stopped on the trigger with steps left.  Bitwise the standard run: a
+    rebin runs exactly where a step's check would have run it (a segment
+    that ends on its bound with the trigger clear continues in the next).
+    ``owner.sim`` is set after every segment and rebin, so a rebin that
+    fails leaves the owner at the state it failed on."""
+    cap = n_steps if chunk is None else chunk
+    done = 0
+    while done < n_steps:
+        k = min(cap, n_steps - done)
+        owner.sim, did, pending = step_until(owner.sim, k, pure_step, need)
+        done += did
+        if done < n_steps and pending:
+            owner.sim = rebin(owner.sim)
+
+
 def _session_fingerprint(stencils, max_age: int, recovery: bool,
                          refless: bool, code_dtype) -> dict:
     """Solver knobs that a checkpoint records and a restore must match for
@@ -844,7 +869,8 @@ class Session:
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk={chunk}: want at least 1")
         if self.segmented:
-            self._run_segmented(n_steps, chunk)
+            run_segmented(self, n_steps, chunk, self._pure_step, self._need,
+                          self._rebin)
             return
         done = 0
         while done < n_steps:
@@ -857,22 +883,6 @@ class Session:
             if self._need(self.sim):
                 self.sim = self._rebin(self.sim)
             self.sim = self._pure_step(self.sim)
-
-    def _run_segmented(self, n_steps: int, chunk: int | None) -> None:
-        """The segmented driver: ``step_until`` segments of at most
-        ``chunk`` steps, and a rebin wherever a segment stopped on the
-        trigger with steps left.  Bitwise the standard run: a rebin runs
-        exactly where a step's check would have run it (a segment that
-        ends on its bound with the trigger clear continues in the next)."""
-        cap = n_steps if chunk is None else chunk
-        done = 0
-        while done < n_steps:
-            k = min(cap, n_steps - done)
-            self.sim, did, pending = step_until(self.sim, k, self._pure_step,
-                                                self._need)
-            done += did
-            if done < n_steps and pending:
-                self.sim = self._rebin(self.sim)
 
     def frame(self, px_per_cell: int = 2,
               mode: str = "density") -> torch.Tensor:

@@ -217,8 +217,19 @@ def fill_ghost_cols_multi(mesh: SlabMesh, fields: list, nxl: int,
     neighbour on a side receives that plane's fill.  ``fields[d]`` is slab
     d's tuple of F float32 planes and ``fills`` their F fills; the F edge
     columns travel stacked, one shift pair for all planes (the reference's
-    ``_fill_ghost_cols_multi``).  Returns new planes (the inputs are left
-    as they are) unless ``inplace``; at D = 1 the fields as they are."""
+    ``_fill_ghost_cols_multi``).  At D = 1 the fields as they are.
+
+    Two paths, by who owns the planes:
+
+    * copying (``inplace=False``): new planes, the inputs left as they
+      are.  The slab step's default posture takes it, so a ``ShardedDenseSim``
+      kept from ``sess.sim`` stays a valid snapshot; it costs one new plane
+      per input plane until the step's kernels have read them;
+    * in place (``inplace=True``): the ghost columns of the given planes
+      are overwritten and the same planes returned.  The slab step takes it
+      when it owns its planes (``donate=True``, the memory-ceiling
+      posture), for the density plane K1 has just written, and in the
+      eager step for its freshly binned planes."""
     if mesh.n == 1:
         return [tuple(f) for f in fields]
     fillv = _fill_columns(tuple(float(v) for v in fills), fields[0][0].device)
@@ -267,19 +278,23 @@ def _pack_migrants(fields, mask, E: int):
 
 
 def make_sharded_step(params: FluidParams, cfg: IntegrateConfig,
-                      spec: ShardSpec, mesh: SlabMesh):
+                      spec: ShardSpec, mesh: SlabMesh, stencils=None):
     """The eager slab step ``fn(ShardedState) -> (ShardedState,
     ShardDiag)``: per slab a binning of its buffer, the position halo,
-    density (K1), the velocity and density halo, forces (K8; the pair of
-    ``cuda_solver.make_stencils``), the Euler step and bounce box, then the
-    migration of particles that left their slab to the neighbour's buffer,
-    compacted (stable) into the fixed capacity."""
+    density, the velocity and density halo, forces, the Euler step and
+    bounce box, then the migration of particles that left their slab to
+    the neighbour's buffer, compacted (stable) into the fixed capacity.
+    ``stencils`` is the (density_fn, forces_fn) pair, e.g.
+    ``grid_solver.XLA_STENCILS``; None takes K1 + K8
+    (``cuda_solver.make_stencils``; the reference's None is its XLA
+    pair)."""
     g = spec.local_grid
     D, M, E = spec.n_devices, spec.capacity, spec.mig_cap
     nxl = spec.nx_local
     if D != mesh.n:
         raise ValueError(f"spec has {D} slabs, mesh {mesh.n}")
-    density_fn, forces_fn = cuda_solver.make_stencils(g)
+    density_fn, forces_fn = (cuda_solver.make_stencils(g)
+                             if stencils is None else stencils)
     self_rho = float(self_density(params))
     grids = [slab_grid(spec, d) for d in range(D)]
     dead_bits = torch.tensor(_DEAD_IDX, dtype=torch.int32).view(

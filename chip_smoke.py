@@ -126,6 +126,37 @@ with the validator — then checks them:
     collect's peak on the ceiling planes; K2 refless timed and bounded on
     the ceiling planes.
 
+17. the sharded very-large-N postures (run after 16, before 14): (a) on
+    slab 1 of a refless D = 2 session's 1M planes, K2 refless with the
+    slab's lane window (planes bitwise K2 refless over every lane, its max
+    bitwise the max of its own moves in the window, within K2's
+    tolerances of its twin), K1 with ``out=`` (bitwise K1) and K8 against
+    their twins, each timed with its bound (the kernel table's
+    ``forces_integrate_refless_lanes``, ``density_out_slab`` and
+    ``forces_slab`` rows); (b) at 1M, D = 2: refless against ref-based
+    (rebins >=, overflow and lost 0, every idx once, |dx| <= 5e-5, |dv|
+    <= 5e-3), segmented + donate + planar + refless bitwise the standard
+    refless run across a ``chunk=`` bound, the in-place halo bitwise the
+    copying one, ``init_chunks`` and ``from_generator`` bitwise the
+    sort-based init, the unfused K1 + K8 step against the fused one at
+    phase 10's bars (K8 twice per step), ms/step and device busy time of
+    the copying and the in-place halo, a refless save -> restore bitwise;
+    (c) the copying (``donate=False``) and owned postures' peaks per slab
+    at D = 2 on a 16M scene (pure steps to the trigger, one rebin), each
+    within what its automatic choice budgets (``FOOTPRINTS`` plus, copying,
+    ``HALO_COPY_FOOTPRINTS``); then the sharded memory ceiling:
+    ``ShardedSession.from_generator`` at
+    D = 2 on the one card at an N between the per-slab capacities of the
+    ref-based planar posture and 0.95 x the ceiling posture (each slab
+    budgeted half of the card), every posture left to its default (refless,
+    planar and owned planes must be chosen): init seconds, ms/step over at
+    least 50 steps with at least one rebin, peak memory in
+    slab-plane-footprints per slab (peak bytes over D slab planes),
+    overflow, lost and dropped 0, K2 refless with the window and K1 into
+    the dead rho twice per step, K6 and 5 x K7 per slab and rebin; then
+    the step's peak and the rebin's apart.  ``python3 chip_smoke.py 17``
+    runs phase 17 alone and prints no result line.
+
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
 Without a CUDA device the script fails before printing any result.
@@ -185,6 +216,22 @@ SLAB_COUNTS = (1, 2, 4)   # phase 16: slabs of the timed runs
 SLAB_IDENTITY_CHUNK = 25  # phase 16: D = 4 vs D = 2 vs one Session, run
 SLAB_IDENTITY_REBINS = 2  # in chunks until each has rebinned this often
 SLAB_IDENTITY_MAX = 300   # steps at most
+SHARDED_STEPS = 160    # phase 17: the 1M D = 2 posture comparisons
+HALO_STEPS = 300       # phase 17: timed steps, copying vs in-place halo
+SHARDED_CEILING_MIN = 50    # phase 17: measured ceiling steps, at least,
+SHARDED_CEILING_MAX = 150   # and at most (until one rebin is in)
+SHARDED_PROBE = {      # phase 17: ShardedSession knobs of each probed
+    # posture, and the FOOTPRINTS key its automatic choice budgets it by
+    # (plus HALO_COPY_FOOTPRINTS when copying; None: printed only)
+    "copying default": (dict(refless_trigger=False, planar_rebin=False,
+                             donate=False), "default"),
+    "copying planar": (dict(refless_trigger=False, planar_rebin=True,
+                            donate=False), "planar"),
+    "copying refless_planar": (dict(refless_trigger=True, planar_rebin=True,
+                                    donate=False), None),
+    "owned ceiling": (dict(refless_trigger=True, planar_rebin=True,
+                           donate=True), "ceiling"),
+}
 PROBE_N = 16_000_000   # phase 14: the footprint probe's scene
 CEILING_STEPS = 100    # phase 14: measured steps of the ceiling run
 CEILING_PROFILED = 8   # phase 14: profiled ceiling steps
@@ -444,6 +491,24 @@ def sims_equal(a, b) -> bool:
     return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
                for x, y in ((getattr(a, f.name), getattr(b, f.name))
                             for f in dataclasses.fields(a)))
+
+
+def slab_sims_equal(a, b) -> bool:
+    """Every field of two ShardedDenseSims equal: tensors bitwise (dtype
+    included), counters."""
+    return all(
+        all(u.dtype == v.dtype and torch.equal(u, v) for u, v in zip(x, y))
+        if isinstance(x, list) and x and isinstance(x[0], torch.Tensor)
+        else x == y
+        for x, y in ((getattr(a, f.name), getattr(b, f.name))
+                     for f in dataclasses.fields(a)))
+
+
+def gc_collect() -> None:
+    """Drop unreachable sessions and return the cached blocks to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def paths_1m() -> tuple[list, str]:
@@ -1408,7 +1473,9 @@ def paths_1m() -> tuple[list, str]:
 
 def counter_wrappers() -> dict:
     """Launch counters by kernel-table name: (wrapper, counter attribute).
-    The refless K2 counts in its own attribute besides K2's."""
+    The refless K2 counts in its own attribute besides K2's, and so do its
+    form with a lane window and K1 into a given plane; the K8 row of the
+    slab path reads K8's own counter in a run of that path alone."""
     from bevy_gpu_fluid_tpu_torch.models import cuda_solver
     from bevy_gpu_fluid_tpu_torch.ops import reslot
     from bevy_gpu_fluid_tpu_torch.render import raster
@@ -1417,6 +1484,9 @@ def counter_wrappers() -> dict:
             "forces_integrate": (k2, "launches"),
             "forces_integrate_refless": (k2, "launches_refless"),
             "forces_integrate_lanes": (k2, "launches_lanes"),
+            "forces_integrate_refless_lanes": (k2, "launches_refless_lanes"),
+            "density_out_slab": (cuda_solver.density_cuda, "launches_out"),
+            "forces_slab": (cuda_solver.forces_cuda, "launches"),
             "reslot": (reslot.reslot_cuda, "launches"),
             "reslot_clip": (reslot.reslot_cuda, "launches_clip"),
             "select_clip": (reslot.select_cuda, "launches_clip"),
@@ -1808,12 +1878,7 @@ def slab_mesh(kernels: list, card: str) -> None:
     planar.run(WARM_STEPS)
     launches = read_launches()
     rb = planar.rebin_count - 1
-    same = all(
-        all(torch.equal(u, v) for u, v in zip(x, y))
-        if isinstance(x, list) and x and isinstance(x[0], torch.Tensor)
-        else x == y
-        for x, y in ((getattr(fused.sim, f.name), getattr(planar.sim, f.name))
-                     for f in dataclasses.fields(fused.sim)))
+    same = slab_sims_equal(fused.sim, planar.sim)
     print(f"# phase 16: planar ShardedSession D=2 bitwise the fused one "
           f"after {WARM_STEPS} steps: {same} ({rb} rebins; launches "
           f"K6 {launches['select']} K6 clip {launches['select_clip']} K7 "
@@ -1857,12 +1922,7 @@ def slab_mesh(kernels: list, card: str) -> None:
         two.run(RESTORE_STEPS)
         back = ShardedSession.restore(path, SlabMesh([dev] * 2))
         back.run(RESTORE_STEPS)
-        same = all(
-            all(torch.equal(u, v) for u, v in zip(x, y))
-            if isinstance(x, list) and x and isinstance(x[0], torch.Tensor)
-            else x == y
-            for x, y in ((getattr(two.sim, f.name), getattr(back.sim, f.name))
-                         for f in dataclasses.fields(two.sim)))
+        same = slab_sims_equal(two.sim, back.sim)
         print(f"# phase 16: ShardedSession.save -> restore -> "
               f"{RESTORE_STEPS} steps bitwise an uninterrupted run: {same} "
               f"({os.path.getsize(path + '.npz') / 2**20:.1f} MiB)",
@@ -2015,6 +2075,504 @@ def variants_on_slab(kernels: list, card: str, sess, params, cfg) -> None:
               f"({k['bound_bytes'] / 1e6:.1f} MB, "
               f"{k['bound_ops'] / 1e9:.3f} GFLOP) at {g.plane_shape} on "
               f"{card}", flush=True)
+
+
+def busy_ms(sess, steps: int) -> tuple[float, float]:
+    """(ms/step by CUDA events, device busy ms/step by torch.profiler) of
+    ``steps`` more steps of a session, each over its own run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    sess.run(steps)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sess.run(BREAKDOWN_STEPS)
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return ms, busy / 1e3 / BREAKDOWN_STEPS
+
+
+def sharded_postures_1m(kernels: list, card: str) -> None:
+    """Phase 17 (a) and (b): the sharded very-large-N postures at D = 2 on
+    phase 4's 1M scene: the kernel variants they put on slab planes, then
+    each posture against the one it must equal or approach."""
+    import tempfile
+
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import \
+        ShardedSession
+
+    dev = torch.device("cuda", 0)
+    params = bt.FluidParams.demo()
+    extent = N_SIDE * 0.04
+    cfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=extent + 1.0)
+    spec = shard.ShardSpec.build(h=0.045 * 1.5, x_min=-1.0,
+                                 x_max=extent + 1.0, y_max=extent * 1.1 + 1.0,
+                                 n_devices=2, capacity=N_SIDE * N_SIDE)
+    state = bt.init_grid(N_SIDE, N_SIDE, 0.04, dev)
+    n = state.n
+    mesh = SlabMesh([dev] * 2)
+    g, nxl = spec.local_grid, spec.nx_local
+
+    def session(**kw):
+        return ShardedSession(state, params, cfg, spec, mesh, **kw)
+
+    def ids_once(sess) -> bool:
+        ids = torch.cat([a[:, :, 1:nxl + 1].reshape(-1)
+                         for a in sess.sim.idx_d] + list(sess.sim.sidx))
+        ids = torch.sort(ids[ids >= 0]).values
+        return ids.numel() == n and torch.equal(
+            ids, torch.arange(n, dtype=ids.dtype, device=ids.device))
+
+    # ---- (a) the variants on slab 1's planes of a refless D = 2 session
+    rs = session(refless_trigger=True)
+    rs.run(WARM_STEPS)
+    sim, d = rs.sim, 1
+    occ = sim.occ[d]
+    halo = shard.fill_ghost_cols_multi(
+        mesh, list(zip(sim.xd, sim.yd, sim.vxd, sim.vyd)), nxl,
+        (1e9, 1e9, 0.0, 0.0))[d]
+    plane_b = 4.0 * halo[0].numel()
+    occ_b = 4.0 * occ.numel()
+    live = halo[0] < 5e8
+    n_live = float(live.sum())
+    need_taps, _ = tile_taps(halo[0], occ, g)
+    # K1 with out= on the slab's halo planes
+    k1 = lambda: cuda_solver.density_cuda(halo[0], halo[1], params, g, occ)
+    dead_rho = torch.full_like(halo[0], float("nan"))
+    k1o = lambda: cuda_solver.density_cuda(halo[0], halo[1], params, g, occ,
+                                           out=dead_rho)
+    t1 = lambda: cuda_solver.density_torch(halo[0], halo[1], params, g, occ)
+    rho, rho_t = k1(), t1()
+    got = k1o()
+    k1_same = got is dead_rho and bits_equal(got, rho)
+    k1_rel = float(((rho - rho_t).abs()
+                    / rho_t.abs().clamp_min(1e-30)).max())
+    # K2 refless with the lane window on the planes the step gives it
+    args = (*halo, rho, None, None, params, cfg, g, occ)
+    lanes = (1, nxl + 1)
+    k2 = lambda: cuda_solver.forces_integrate_cuda(*args, refless=True,
+                                                   disp_lanes=lanes)
+    t2 = lambda: cuda_solver.forces_integrate_torch(*args, refless=True,
+                                                    disp_lanes=lanes)
+    out, full, want = (k2(), cuda_solver.forces_integrate_cuda(
+        *args, refless=True), t2())
+    k2_same = all(bits_equal(a, b) for a, b in zip(out[:4], full[:4]))
+    ddx = (out[0] - halo[0])[:, :, 1:nxl + 1]
+    ddy = (out[1] - halo[1])[:, :, 1:nxl + 1]
+    own_max = torch.where(live[:, :, 1:nxl + 1], ddx * ddx + ddy * ddy,
+                          0.0).amax()
+    k2_max = bits_equal(out[4], own_max)
+    pos_err = max(float((a - b).abs().max()) for a, b in zip(out[:2],
+                                                             want[:2]))
+    vscale = float(torch.maximum(want[2].abs().max(), want[3].abs().max()))
+    vel_err = max(float((a - b).abs().max()) for a, b in zip(out[2:4],
+                                                             want[2:4]))
+    d_err = abs(float(out[4]) - float(want[4]))
+    # K8 on the slab's halo planes
+    f8 = (*halo, rho, params, g, occ)
+    k8 = lambda: cuda_solver.forces_cuda(*f8)
+    t8 = lambda: cuda_solver.forces_torch(*f8)
+    a_err, a_scale = k8_check(k8(), t8(), halo[0], "a D = 2 slab's planes")
+    print(f"# phase 17: variants on slab {d} of a refless D=2 session's 1M "
+          f"planes {g.plane_shape} after {WARM_STEPS} steps: K1 out= "
+          f"bitwise K1: {k1_same} (vs twin rel {k1_rel:.3e}, <= 1e-5); K2 "
+          f"refless with the lane window {lanes}: planes bitwise K2 refless "
+          f"over every lane: {k2_same}, its max bitwise the max of its own "
+          f"moves in the window: {k2_max}; vs twin |dx| {pos_err:.3e} (<= "
+          f"1e-5), |dv| {vel_err:.3e} of {vscale:.3f} (<= 1e-4 rel), step "
+          f"max {float(out[4]):.6e} vs {float(want[4]):.6e} (every lane "
+          f"{float(full[4]):.6e}); K8 |da| {a_err:.3e} of {a_scale:.1f} "
+          f"(<= 1e-5 rel), dead slots +0 bitwise; on {card}", flush=True)
+    check(k1_same and k1_rel <= 1e-5, "K1 out= on a slab")
+    check(k2_same and k2_max, "K2 refless + lanes bitwise")
+    check(pos_err <= 1e-5 and vel_err <= 1e-4 * vscale
+          and d_err <= 1e-4 * float(want[4]), "K2 refless + lanes vs twin")
+    shape = list(g.plane_shape)
+    rows = [
+        dict(name="forces_integrate_refless_lanes", route="cuda",
+             source="bevy_gpu_fluid_tpu_torch/csrc/forces_integrate.cu",
+             replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:626",
+             max_abs_err=max(pos_err, vel_err, d_err),
+             ms=kernel_ms(k2, "forces_integrate_kernel<true>", 50),
+             wrapper_ms=cuda_ms(k2, 50), plain_ms=cuda_ms(t2, 3),
+             library_ms=None, shape=shape,
+             **bound(9 * plane_b + occ_b + 4,
+                     need_taps * FORCE_OPS + n_live * 20)),
+        dict(name="density_out_slab", route="cuda",
+             source="bevy_gpu_fluid_tpu_torch/csrc/density.cu",
+             replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:224",
+             max_abs_err=float((got - rho_t).abs().max()),
+             ms=kernel_ms(k1o, "density_kernel", 50),
+             wrapper_ms=cuda_ms(k1o, 50), plain_ms=cuda_ms(t1, 3),
+             library_ms=None, shape=shape,
+             **bound(3 * plane_b + occ_b, need_taps * DENSITY_OPS)),
+        dict(name="forces_slab", route="cuda",
+             source="bevy_gpu_fluid_tpu_torch/csrc/forces.cu",
+             replaces="bevy_gpu_fluid_tpu/models/pallas_solver.py:296",
+             max_abs_err=a_err, ms=kernel_ms(k8, "forces_kernel", 50),
+             wrapper_ms=cuda_ms(k8, 50), plain_ms=cuda_ms(t8, 3),
+             library_ms=None, shape=shape, **bound_k8(halo[0], occ, g))]
+    kernels.extend(rows)
+    for k in rows:
+        print(f"#   {k['name']}: kernel {k['ms']:.4f} ms (profiler), wrapper "
+              f"{k['wrapper_ms']:.4f} ms, twin {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']} "
+              f"({k['bound_bytes'] / 1e6:.1f} MB, "
+              f"{k['bound_ops'] / 1e9:.3f} GFLOP) at {g.plane_shape} on "
+              f"{card}", flush=True)
+    del rs, sim, occ, halo, rho, rho_t, got, dead_rho, args, out, full, want
+    del ddx, ddy, own_max, f8, live
+
+    # ---- (b) the postures at 1M, D = 2
+    runs = {}
+    for label, kw in (("ref-based", {}),
+                      ("refless", dict(refless_trigger=True))):
+        sess = session(**kw)
+        sess.run(SHARDED_STEPS)
+        runs[label] = sess
+    a, b = runs["ref-based"], runs["refless"]
+    sa, sb = a.state(), b.state()
+    dx = max(float((sa.x - sb.x).abs().max()),
+             float((sa.y - sb.y).abs().max()))
+    dv = max(float((sa.vx - sb.vx).abs().max()),
+             float((sa.vy - sb.vy).abs().max()))
+    print(f"# phase 17: refless vs ref-based D=2 over {SHARDED_STEPS} steps "
+          f"at 1M: rebins {b.rebin_count - 1} >= {a.rebin_count - 1}, "
+          f"overflow {b.overflow} / {a.overflow}, lost {b.lost}, every idx "
+          f"once: {ids_once(b)}; |dx| {dx:.3e} (<= 5e-5), |dv| {dv:.3e} "
+          f"(<= 5e-3)", flush=True)
+    check(b.rebin_count >= a.rebin_count and a.overflow == b.overflow == 0
+          and b.lost == 0 and ids_once(b) and dx <= 5e-5 and dv <= 5e-3,
+          "sharded refless vs ref-based")
+    del sa, sb, a
+    # segmented + owned + planar + refless against the standard refless run
+    seg = session(refless_trigger=True, planar_rebin=True, donate=True,
+                  segmented=True)
+    half = SHARDED_STEPS // 2 + 10
+    seg.run(half)
+    seg.run(SHARDED_STEPS - half, chunk=SHARDED_STEPS // 6)
+    same = slab_sims_equal(b.sim, seg.sim)
+    print(f"# phase 17: segmented + donate + planar + refless D=2 bitwise "
+          f"the standard refless run over {SHARDED_STEPS} steps ({half} + "
+          f"{SHARDED_STEPS - half} with chunk={SHARDED_STEPS // 6}): {same} "
+          f"({seg.rebin_count - 1} rebins)", flush=True)
+    check(same and seg.rebin_count - 1 >= 2, "sharded segmented driver")
+    del seg
+    # owned planes: the in-place halo (and K1 into the dead rho) against the
+    # copying run, refless (every field comparable)
+    own = session(refless_trigger=True, donate=True)
+    own.run(SHARDED_STEPS)
+    same = slab_sims_equal(b.sim, own.sim)
+    print(f"# phase 17: in-place halo (donate=True) D=2 bitwise the copying "
+          f"one over {SHARDED_STEPS} refless steps: {same}", flush=True)
+    check(same, "in-place halo vs copying")
+    del own
+    # the generator and chunked inits against the sort-based one
+    sorted_sim = session().sim
+    chunked = session(init_chunks=16).sim
+    same_c = slab_sims_equal(sorted_sim, chunked)
+    del chunked
+    gen = ShardedSession.from_generator(
+        bt.lattice_gen(N_SIDE, 0.04, dev), n, params, cfg, spec, mesh,
+        init_chunks=16, donate=False)
+    same_g = slab_sims_equal(sorted_sim, gen.sim)
+    print(f"# phase 17: D=2 init_chunks=16 and from_generator(lattice_gen) "
+          f"bitwise the sort-based init at 1M: {same_c}, {same_g}",
+          flush=True)
+    check(same_c and same_g, "sharded chunked/generator init")
+    del sorted_sim, gen
+    # the unfused step (K1 + K8 + the torch tail) against the fused one
+    fused = session()
+    unfused = session(fused=False, stencils=cuda_solver.make_stencils(g))
+    fused.run(UNFUSED_STEPS)
+    zero_launches()
+    unfused.run(UNFUSED_STEPS)
+    launches = read_launches()
+    fa, ua = fused.state(), unfused.state()
+    u_dx = max(float((ua.x - fa.x).abs().max()),
+               float((ua.y - fa.y).abs().max()))
+    vscale = float(torch.maximum(fa.vx.abs().max(), fa.vy.abs().max()))
+    u_dv = max(float((ua.vx - fa.vx).abs().max()),
+               float((ua.vy - fa.vy).abs().max()))
+    u_rb = unfused.rebin_count - 1
+    print(f"# phase 17: unfused D=2 (K1 + K8) vs fused over {UNFUSED_STEPS} "
+          f"steps at 1M: rebins {u_rb} / {fused.rebin_count - 1}, |dx| "
+          f"{u_dx:.3e} (<= 1e-4), |dv| {u_dv:.3e} of max|v| {vscale:.3f} "
+          f"(<= 1e-3 rel, phase 10's bars); overflow {unfused.overflow}; "
+          f"launches {launches}", flush=True)
+    check(launches["forces_slab"] == launches["density"] == 2 * UNFUSED_STEPS
+          and launches["forces_integrate"] == 0
+          and launches["reslot"] == 2 * u_rb,
+          f"unfused sharded launches {launches}")
+    check(unfused.overflow == 0 and u_dx <= 1e-4 and u_dv <= 1e-3 * vscale,
+          "unfused sharded vs fused")
+    row = next(k for k in kernels if k["name"] == "forces_slab")
+    row["launches"] = launches["forces_slab"]
+    row["launches_path"] = (f"unfused D=2 ShardedSession, {UNFUSED_STEPS} "
+                            f"steps")
+    del fused, unfused, fa, ua
+    # the halo's cost: the copying and the in-place posture, ref-based
+    timing = {}
+    for label, kw in (("copying", {}), ("in place", dict(donate=True))):
+        sess = session(**kw)
+        sess.run(WARM_STEPS)
+        timing[label] = busy_ms(sess, HALO_STEPS)
+        del sess
+    print(f"# phase 17: D=2 at 1M, {WARM_STEPS} + {HALO_STEPS} steps + "
+          f"{BREAKDOWN_STEPS} profiled: " + "; ".join(
+              f"{k} halo {v[0]:.4f} ms/step (CUDA events), device busy "
+              f"{v[1]:.4f} ms/step" for k, v in timing.items())
+          + f" on {card} (no gain is claimed)", flush=True)
+    # a refless save -> restore -> RESTORE_STEPS, bitwise
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "refless")
+        b.save(path)
+        b.run(RESTORE_STEPS)
+        back = ShardedSession.restore(path, mesh, refless_trigger=True)
+        back.run(RESTORE_STEPS)
+        same = slab_sims_equal(b.sim, back.sim)
+        try:
+            ShardedSession.restore(path, mesh, refless_trigger=False)
+            refused = False
+        except ValueError:
+            refused = True
+        print(f"# phase 17: refless ShardedSession.save -> restore -> "
+              f"{RESTORE_STEPS} steps bitwise an uninterrupted run: {same}; "
+              f"a ref-based restore refused: {refused}", flush=True)
+        check(same and refused, "sharded refless checkpoint")
+    del b, back, runs
+
+
+def ceiling_spec(side: int, D: int):
+    """The scale scene's ShardSpec (side x side particles, D slabs)."""
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    extent = side * 0.04
+    return shard.ShardSpec.build(
+        h=0.045 * 1.75, x_min=-1.0, x_max=extent + 1.0,
+        y_max=extent * 1.1 + 1.0, n_devices=D, capacity=side * side)
+
+
+def peaks_apart(sess) -> tuple:
+    """A ShardedSession's step peak and rebin peak apart: pure steps to
+    the trigger, then the rebin alone.  Returns (pure steps, step peak,
+    rebin peak, rebin ms), peaks as ``max_memory_allocated``."""
+    steps_fn = sess._steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    to_need = 0
+    while not steps_fn.need(sess.sim):
+        sess.sim = steps_fn.pure_step(sess.sim)
+        to_need += 1
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    r0 = sess.rebin_count
+    start.record()
+    sess.sim = steps_fn.rebin(sess.sim)
+    end.record()
+    end.synchronize()
+    check(sess.rebin_count == r0 + 1, "peaks_apart: no rebin")
+    return (to_need, step_peak, torch.cuda.max_memory_allocated(),
+            start.elapsed_time(end))
+
+
+def sharded_footprints(card: str) -> None:
+    """Phase 17 (c), first: the copying (``donate=False``) and owned
+    postures' peaks of a D = 2 ``ShardedSession`` on the one card, on a
+    16M scale scene, in slab-plane-footprints per slab (bytes above what
+    was allocated before, over D slab planes): pure steps to the trigger,
+    then one rebin.  Each budgeted posture must stay within what its
+    automatic choice budgets: ``verlet_solver.FOOTPRINTS`` plus, copying,
+    ``shard_verlet.HALO_COPY_FOOTPRINTS``."""
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.parallel import shard_verlet as sv
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import \
+        ShardedSession
+
+    dev = torch.device("cuda", 0)
+    D = 2
+    side = math.isqrt(PROBE_N)
+    n = side * side
+    spec = ceiling_spec(side, D)
+    slab_b = plane_bytes(spec.local_grid)
+    params, cfg, _ = scale_scene(side)
+    print(f"# phase 17: copying vs owned postures, D={D} on cuda:0, {n:,} "
+          f"particles, slab planes {spec.local_grid.plane_shape} "
+          f"({slab_b / 2**20:.1f} MiB); peaks in slab-plane-footprints per "
+          f"slab, recovery armed, on {card}", flush=True)
+    for name, (knobs, key) in SHARDED_PROBE.items():
+        gc_collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        sess = ShardedSession.from_generator(
+            bt.lattice_gen(side, 0.04, dev), n, params, cfg, spec,
+            SlabMesh([dev] * D), segmented=False, **knobs)
+        sess.run(2)     # the references now differ from the positions
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        to_need, step_peak, rebin_peak, _ = peaks_apart(sess)
+        fp = lambda b: (b - base) / (D * slab_b)
+        peak = max(fp(step_peak), fp(rebin_peak))
+        budget = None if key is None else (
+            vs.FOOTPRINTS[key]
+            + (0.0 if knobs["donate"] else sv.HALO_COPY_FOOTPRINTS))
+        print(f"#   {name:24s} resident {resident / (D * slab_b):.3f}, "
+              f"{to_need} pure steps {fp(step_peak):.3f}, rebin "
+              f"{fp(rebin_peak):.3f}; budgeted "
+              f"{'-' if budget is None else f'{budget:.3f}'}", flush=True)
+        check(sess.overflow == 0 and sess.lost == 0,
+              f"{name}: overflow or loss")
+        check(budget is None or peak <= budget,
+              f"{name}: peak {peak:.3f} slab planes over its budget {budget}")
+        del sess
+
+
+def sharded_ceiling(kernels: list, card: str) -> None:
+    """Phase 17 (c): the sharded memory ceiling on the one card:
+    ``ShardedSession.from_generator`` at D = 2 (each slab gets half of the
+    card) at an N the sharded default posture does not fit, its postures
+    left automatic."""
+    from types import SimpleNamespace
+
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import \
+        ShardedSession
+
+    dev = torch.device("cuda", 0)
+    D = 2
+    total = torch.cuda.mem_get_info(dev)[1]
+    share = total // D
+    reserve = vs.RESERVE_BYTES
+    spec_of = lambda side: ceiling_spec(side, D)
+
+    def slab_capacity(footprints):
+        lo, hi = 64, 1 << 17
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            fits = (footprints * plane_bytes(spec_of(mid).local_grid)
+                    + reserve <= share)
+            lo, hi = (mid, hi) if fits else (lo, mid)
+        return lo * lo
+
+    n_default = slab_capacity(vs.FOOTPRINTS["default"])
+    n_planar = slab_capacity(vs.FOOTPRINTS["planar"])
+    n_ceiling = slab_capacity(vs.FOOTPRINTS["ceiling"])
+    side = math.isqrt((n_planar + int(0.95 * n_ceiling)) // 2)
+    n = side * side
+    check(n_planar < n <= 0.95 * n_ceiling,
+          f"no N between the ref-based planar capacity {n_planar} and 0.95 "
+          f"x the ceiling's {n_ceiling}")
+    spec = spec_of(side)
+    g = spec.local_grid
+    slab_b = plane_bytes(g)
+    params, cfg, _ = scale_scene(side)
+    print(f"# phase 17: sharded ceiling, D={D} on cuda:0 (each slab gets "
+          f"{share / 2**30:.2f} GiB of {total / 2**30:.2f}): {n:,} particles "
+          f"({side} x {side}); slab planes {g.plane_shape} "
+          f"({g.row_block}-row blocks) = {slab_b / 2**30:.3f} GiB each, "
+          f"{D * slab_b / 2**30:.3f} GiB a plane of both; per-slab "
+          f"capacities (footprints x slab plane + {reserve / 2**30:.0f} GiB "
+          f"in a slab's share): default posture {n_default:,}, ref-based "
+          f"planar {n_planar:,}, ceiling {n_ceiling:,}; on {card}",
+          flush=True)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = ShardedSession.from_generator(bt.lattice_gen(side, 0.04, dev), n,
+                                         params, cfg, spec,
+                                         SlabMesh([dev] * D))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    fp = lambda b: b / (D * slab_b)
+    init_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    posture = dict(refless_trigger=sess.refless_trigger,
+                   planar_rebin=sess.planar_rebin, segmented=sess.segmented,
+                   donate=sess.donate)
+    print(f"#   posture chosen {posture}; from_generator init {t_init:.2f} s, "
+          f"peak {init_peak / 2**30:.2f} GiB = {fp(init_peak):.3f} "
+          f"slab-plane-footprints per slab (resident {fp(resident):.3f}); "
+          f"alive {sess.alive}, overflow {sess.overflow} on {card}",
+          flush=True)
+    check(sess.refless_trigger and sess.planar_rebin and sess.donate,
+          f"the defaults did not choose the ceiling posture: {posture}")
+    check(sum(sess.alive) == n, f"init alive {sess.alive} of {n}")
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = sess.rebin_count
+    steps = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with SmiSampler() as run_smi:
+        start.record()
+        while steps < SHARDED_CEILING_MIN or (
+                sess.rebin_count == r0 and steps < SHARDED_CEILING_MAX):
+            sess.run(25)
+            steps += 25
+        end.record()
+        end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rebins = sess.rebin_count - r0
+    ms_step = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated()
+    sane = [planes_sane(SimpleNamespace(**{
+        k: getattr(sess.sim, k)[d][:, :, 1:g.nx + 1]
+        for k in ("xd", "yd", "vxd", "vyd")}), cfg) for d in range(D)]
+    live = sum(v["live"] for v in sane)
+    print(f"#   {steps} steps: {ms_step:.3f} ms/step (CUDA events; host "
+          f"{wall / steps * 1e3:.3f}) = {n / ms_step * 1e3 / 1e9:.3f}G "
+          f"particle-steps/s; rebins {rebins}, overflow {sess.overflow}, "
+          f"lost {sess.lost}, dropped {sess.dropped}, suspended "
+          f"{sess.suspended}; real columns per slab {sane}; peak "
+          f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB = "
+          f"{fp(peak):.3f} slab-plane-footprints per slab (the single "
+          f"card's ceiling posture: 10.000 planes); launches {launches}; "
+          f"{run_smi.summary()} on {card}", flush=True)
+    check(all(v["finite_in_box"] and v["dead_far"] for v in sane)
+          and live == n - sess.suspended, f"sharded ceiling fields {sane}")
+    check(sess.overflow == 0 and sess.lost == 0 and sess.dropped == 0,
+          "sharded ceiling overflow or loss")
+    check(rebins >= 1, "no rebin in the sharded ceiling run")
+    check(launches["forces_integrate_refless_lanes"] == D * steps
+          and launches["density_out_slab"] == D * steps
+          and launches["density"] == D * steps,
+          f"refless K2 with lanes / K1 out= launches {launches}")
+    check(launches["select_clip"] == D * rebins
+          and launches["apply_code"] == 5 * D * rebins
+          and launches["reslot"] == launches["mono_step"] == 0,
+          f"K6/K7 launches {launches} for {rebins} rebins")
+    check(peak < total, f"peak {peak} over the card's {total}")
+    for k in kernels:
+        if k["name"] in ("forces_integrate_refless_lanes", "density_out_slab"):
+            k["launches"] = launches[k["name"]]
+            k["launches_path"] = (f"sharded ceiling, D=2, {n} particles, "
+                                  f"{steps} steps")
+    to_need, step_peak, rebin_peak, rebin_ms = peaks_apart(sess)
+    print(f"#   peaks apart: {to_need} pure steps {fp(step_peak):.3f}, one "
+          f"rebin {fp(rebin_peak):.3f} slab-plane-footprints per slab "
+          f"({rebin_ms:.1f} ms, CUDA events): the rebin peaks "
+          f"{'ABOVE' if rebin_peak > step_peak else 'at or below'} the "
+          f"step on {card}", flush=True)
+    check(sess.overflow == 0 and sess.lost == 0, "ceiling rebin loss")
+    del sess
 
 
 def footprints_and_ceiling(kernels: list, card: str) -> None:
@@ -2287,15 +2845,27 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False); this script runs only on the GPU")
-    import gc
+    if sys.argv[1:] == ["17"]:      # phase 17 alone: no result line
+        kernels, card = [], smi_line()
+        sharded_postures_1m(kernels, card)
+        gc_collect()
+        sharded_footprints(card)
+        gc_collect()
+        sharded_ceiling(kernels, card)
+        print(json.dumps({"kernels": kernels}))
+        return
     kernels, card = paths_1m()
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_collect()
     ceiling_mechanisms_1m(kernels, card)
-    gc.collect()
+    gc_collect()
     slab_mesh(kernels, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_collect()
+    sharded_postures_1m(kernels, card)
+    gc_collect()
+    sharded_footprints(card)
+    gc_collect()
+    sharded_ceiling(kernels, card)
+    gc_collect()
     footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -851,3 +851,87 @@ def test_sharded_planar_bitwise_fused_on_card(cuda, sharded_card):
             assert all(torch.equal(u, v) for u, v in zip(x, y)), f.name
         else:
             assert x == y, f.name
+
+
+# ---- the sharded very-large-N postures -----------------------------------
+
+def test_forces_integrate_refless_with_disp_lanes(sharded_card):
+    """K2 refless with a slab's lane window (the sharded refless trigger's
+    launch): its planes bitwise the refless K2's over every lane, its max
+    bitwise the max of its own moves in the window (from the old
+    positions), and within K2's tolerances of its twin; its own
+    counter."""
+    sess = sharded_card
+    nxl, g = sess.spec.nx_local, sess.spec.local_grid
+    for d in range(2):
+        s = sess.sim.slab(d)
+        xd, yd, vxd, vyd = (s[k].clone() for k in ("xd", "yd", "vxd", "vyd"))
+        rho = cuda_solver.density_cuda(xd, yd, PARAMS, g, s["occ"])
+        args = (xd, yd, vxd, vyd, rho, None, None, PARAMS, CFG, g, s["occ"])
+        lanes = (1, nxl + 1)
+        before = cuda_solver.forces_integrate_cuda.launches_refless_lanes
+        got = cuda_solver.forces_integrate_cuda(*args, refless=True,
+                                                disp_lanes=lanes)
+        assert (cuda_solver.forces_integrate_cuda.launches_refless_lanes
+                == before + 1)
+        full = cuda_solver.forces_integrate_cuda(*args, refless=True)
+        for a, b in zip(got[:4], full[:4]):
+            assert torch.equal(_bits(a), _bits(b))
+        live = (xd < 5e8)[:, :, 1:nxl + 1]
+        dx = (got[0] - xd)[:, :, 1:nxl + 1]
+        dy = (got[1] - yd)[:, :, 1:nxl + 1]
+        want_max = torch.where(live, dx * dx + dy * dy, 0.0).amax()
+        assert torch.equal(_bits(got[4]), _bits(want_max))
+        twin = cuda_solver.forces_integrate_torch(*args, refless=True,
+                                                  disp_lanes=lanes)
+        assert float((got[0] - twin[0]).abs().max()) <= 1e-5
+        vmax = float(twin[2].abs().max())
+        assert float((got[2] - twin[2]).abs().max()) <= 1e-4 * vmax
+        assert abs(float(got[4]) - float(twin[4])) <= 1e-4 * float(twin[4])
+
+
+@pytest.mark.parametrize("posture", ["ceiling", "unfused"])
+def test_sharded_postures_on_card_match_cpu_twins(cuda, posture):
+    """The D = 2 memory-ceiling posture (generator init, refless trigger,
+    planar rebin consuming owned planes, the in-place halo, K1 into the
+    dead rho, the segmented driver) and the unfused K1 + K8 step on the
+    card against the same runs on the CPU: counters and slots exact,
+    particles at the Session gate's tolerances."""
+    from bevy_gpu_fluid_tpu_torch.parallel import shard
+    from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+    from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import \
+        ShardedSession
+    spec = shard.ShardSpec.build(h=0.045 * 1.5, x_min=-1.0, x_max=2.5,
+                                 y_max=3.0, n_devices=2, capacity=4096)
+    out = []
+    for device in (cuda, "cpu"):
+        mesh = SlabMesh([device] * 2)
+        if posture == "ceiling":
+            lattice = bt.lattice_gen(80, 0.04, device)
+
+            def gen(gi):     # the 80 x 8 block, kicked right across the seam
+                x, y, vx, vy = lattice(gi)
+                return x - 0.98, y, vx + 4.0, vy
+            sess = ShardedSession.from_generator(
+                gen, 80 * 8, PARAMS, CFG, spec, mesh, refless_trigger=True,
+                planar_rebin=True, segmented=True)
+        else:
+            state = bt.init_grid(80, 8, 0.04, device)
+            state = state.replace(x=state.x - 0.98, vx=torch.full(
+                (state.n,), 4.0, device=device))
+            sess = ShardedSession(
+                state, PARAMS, CFG, spec, mesh, fused=False,
+                stencils=cuda_solver.make_stencils(spec.local_grid),
+                donate=True)
+        sess.run(30, chunk=12)
+        out.append(sess)
+    a, b = out
+    assert a.rebin_count == b.rebin_count >= 2
+    assert (a.alive, a.overflow, a.dropped, a.lost) == \
+        (b.alive, b.overflow, b.dropped, b.lost) == (a.alive, 0, 0, 0)
+    for d in range(2):
+        assert torch.equal(a.sim.idx_d[d].cpu(), b.sim.idx_d[d])
+    sa, sb = a.state(), b.state()
+    assert float((sa.x.cpu() - sb.x).abs().max()) <= 1e-5
+    assert float((sa.vx.cpu() - sb.vx).abs().max()) <= 1e-4
+    assert float(((sa.rho.cpu() - sb.rho) / sb.rho).abs().max()) <= 1e-5

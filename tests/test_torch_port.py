@@ -278,7 +278,23 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.render.pump, "
             "bevy_gpu_fluid_tpu_torch.interact.impulse, "
             "bevy_gpu_fluid_tpu_torch.core.simulation, "
-            "bevy_gpu_fluid_tpu_torch.parallel.sharded_session; "
+            "bevy_gpu_fluid_tpu_torch.parallel.sharded_session, "
+            "bevy_gpu_fluid_tpu_torch.parallel.shard_verlet, "
+            "bevy_gpu_fluid_tpu_torch.parallel.shard_render; "
+            # the very-large-N slab postures, driven: they import lazily
+            "import torch, bevy_gpu_fluid_tpu_torch as bt; "
+            "torch.set_num_threads(1); "
+            "from bevy_gpu_fluid_tpu_torch.parallel import shard; "
+            "from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh; "
+            "from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import "
+            "ShardedSession; "
+            "spec = shard.ShardSpec.build(h=0.0675, x_min=-1.0, x_max=2.5, "
+            "y_max=3.0, n_devices=2, capacity=512); "
+            "s = ShardedSession.from_generator(bt.lattice_gen(12, 0.04, "
+            "'cpu'), 144, bt.FluidParams.demo(), bt.IntegrateConfig.create("
+            "x_min=-1.0, x_max=2.5), spec, SlabMesh(['cpu'] * 2), "
+            "refless_trigger=True, planar_rebin=True, segmented=True, "
+            "fused=False); s.run(2); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'bevy_gpu_fluid_tpu.')) "
             "or m == 'bevy_gpu_fluid_tpu']; "
