@@ -68,14 +68,27 @@ def accel_field(state: FluidState, params: FluidParams) -> FluidState:
                          ay=torch.cat(ay_parts) + GRAVITY_Y)
 
 
+def integrate(state: FluidState, cfg: IntegrateConfig) -> FluidState:
+    """Semi-implicit Euler with the stored accelerations."""
+    x, y, vx, vy = integrator.euler(state.x, state.y, state.vx, state.vy,
+                                    state.ax, state.ay, cfg.dt)
+    return state.replace(x=x, y=y, vx=vx, vy=vy)
+
+
+def apply_boundaries(state: FluidState, cfg: IntegrateConfig) -> FluidState:
+    """Clamp + bounce on the floor and both walls; no ceiling (``bounce``
+    is negative in the demos)."""
+    x, y, vx, vy = integrator.boundaries(state.x, state.y, state.vx,
+                                         state.vy, cfg)
+    return state.replace(x=x, y=y, vx=vx, vy=vy)
+
+
 def step(state: FluidState, params: FluidParams,
          cfg: IntegrateConfig) -> FluidState:
     """One full golden-model step."""
     state = accel_field(density_pressure(state, params), params)
-    x, y, vx, vy = integrator.euler(state.x, state.y, state.vx, state.vy,
-                                    state.ax, state.ay, cfg.dt)
-    x, y, vx, vy = integrator.boundaries(x, y, vx, vy, cfg)
-    return state.replace(x=x, y=y, vx=vx, vy=vy, step=state.step + 1)
+    state = apply_boundaries(integrate(state, cfg), cfg)
+    return state.replace(step=state.step + 1)
 
 
 def multi_step(state: FluidState, params: FluidParams, cfg: IntegrateConfig,

@@ -406,7 +406,8 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                     grid: GridSpec2D, max_age: int = 64,
                     n: int | None = None, *, stencils=None,
                     planar: bool = False, code_dtype=torch.int32,
-                    refless: bool = False, donate: bool = False):
+                    refless: bool = False, donate: bool = False,
+                    kernels=None):
     """The dense step as ``(pure_step, rebin, need)``: ``need(sim)`` is the
     rebin trigger (a host bool), ``rebin(sim)`` the local reslot with
     recovery, ``pure_step(sim)`` the step's kernels.  ``n`` (the particle
@@ -445,9 +446,17 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
     ``donate=True``: the step OWNS the planes of the DenseSim it is given.
     K1 writes the new rho into the old rho plane (``density_cuda``'s
     ``out``; the stencils' ``out`` where their ``takes_out`` says so), so
-    the given DenseSim's ``rho_d`` changes under it."""
+    the given DenseSim's ``rho_d`` changes under it.
+
+    ``kernels`` stands in for the kernel wrappers: any namespace with
+    ``density_cuda``, ``forces_integrate_cuda``, ``mono_step_cuda`` and
+    ``reslot_cuda`` of the wrappers' signatures (``kernels.ops``: the same
+    kernels as ``torch.library`` operators, which ``torch.export`` traces;
+    ``utils/aot.py``).  The default calls the wrappers directly."""
     reslot_ops.check_code_dtype(code_dtype, grid.cap)
-    reslot = reslot_ops.make_reslot(grid)
+    ks = cuda_solver if kernels is None else kernels
+    reslot = (reslot_ops.make_reslot(grid) if kernels is None
+              else lambda *planes: kernels.reslot_cuda(*planes, grid))
     skin_half = _skin(params, grid)
     skin2 = float(skin_half * skin_half)
     q = skin_half / cfg.dt
@@ -550,7 +559,7 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
 
     def pure_step(sim: DenseSim) -> DenseSim:
         if mono:
-            xd, yd, vxd, vyd, rho_d, disp2 = cuda_solver.mono_step_cuda(
+            xd, yd, vxd, vyd, rho_d, disp2 = ks.mono_step_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, sim.ref_xd, sim.ref_yd,
                 params, cfg, grid, sim.occ)
             return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
@@ -558,9 +567,9 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                                        age=sim.age + 1, step=sim.step + 1)
         out = sim.rho_d if rho_into else None
         if fused:
-            rho_d = cuda_solver.density_cuda(sim.xd, sim.yd, params, grid,
-                                             sim.occ, out=out)
-            xd, yd, vxd, vyd, disp2 = cuda_solver.forces_integrate_cuda(
+            rho_d = ks.density_cuda(sim.xd, sim.yd, params, grid, sim.occ,
+                                    out=out)
+            xd, yd, vxd, vyd, disp2 = ks.forces_integrate_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd,
                 sim.ref_yd, params, cfg, grid, sim.occ, refless=refless)
         else:

@@ -28,13 +28,16 @@ FAR = 1.0e9  # empty-slot sentinel for position fields
 class Binned:
     """Result of binning N particles (original order): clamped cell coords
     ``cx``/``cy`` and within-cell ``rank`` (int64[N]), plus ``overflow``,
-    the host count of particles ranked at or beyond ``cap``."""
+    the host count of particles ranked at or beyond ``cap``; ``perm``
+    (int64[N], ``bin_particles`` only) is the sort's order, the original
+    index of the i-th particle by cell."""
 
     cx: torch.Tensor
     cy: torch.Tensor
     rank: torch.Tensor
     overflow: int
     grid: GridSpec2D
+    perm: torch.Tensor | None = None
 
 
 def cell_index(v: torch.Tensor, origin: float, inv: np.float32,
@@ -53,17 +56,33 @@ def inv_cell(grid: GridSpec2D) -> np.float32:
     return np.float32(1.0 / grid.cell_size)
 
 
-def cell_coords(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D):
-    """Clamped integer cell coordinates for component position arrays [N]."""
+def cell_coords(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D,
+                origin=None):
+    """Clamped integer cell coordinates for component position arrays [N];
+    ``origin`` (ox, oy) overrides the grid's world origin (a slab's)."""
+    ox, oy = (grid.origin_x, grid.origin_y) if origin is None else origin
     inv = inv_cell(grid)
-    return (cell_index(x, grid.origin_x, inv, 0, grid.nx - 1),
-            cell_index(y, grid.origin_y, inv, 0, grid.ny - 1))
+    return (cell_index(x, ox, inv, 0, grid.nx - 1),
+            cell_index(y, oy, inv, 0, grid.ny - 1))
+
+
+def cell_ids(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D,
+             origin=None) -> torch.Tensor:
+    """Linear cell id ``cx + cy * nx`` (int64[N])."""
+    cx, cy = cell_coords(x, y, grid, origin)
+    return cx + cy * grid.nx
 
 
 def stable_rank(cid: torch.Tensor) -> torch.Tensor:
     """Within-group rank of each element of ``cid`` (int64 [n], original
     order): a stable sort by id, ranks from a segment cummax, one scatter
     back, so equal ids rank in original-index order."""
+    return stable_order(cid)[1]
+
+
+def stable_order(cid: torch.Tensor):
+    """(perm, rank): ``stable_rank``'s sort order (the original index of
+    the i-th element by id) and its ranks."""
     n = cid.shape[0]
     perm = torch.argsort(cid, stable=True)
     sorted_cell = cid[perm]
@@ -73,16 +92,22 @@ def stable_rank(cid: torch.Tensor) -> torch.Tensor:
     seg_start = torch.cummax(torch.where(is_new, pos, -1), dim=0).values
     rank = torch.empty_like(pos)
     rank[perm] = pos - seg_start
-    return rank
+    return perm, rank
 
 
 def bin_particles(x: torch.Tensor, y: torch.Tensor,
                   grid: GridSpec2D) -> Binned:
-    """Bin N particles: clamped cell coords and their ``stable_rank``."""
+    """Bin N particles: clamped cell coords, their ``stable_order``."""
     cx, cy = cell_coords(x, y, grid)
-    rank = stable_rank(cx + cy * grid.nx)
+    perm, rank = stable_order(cx + cy * grid.nx)
     overflow = int((rank >= grid.cap).sum())
-    return Binned(cx=cx, cy=cy, rank=rank, overflow=overflow, grid=grid)
+    return Binned(cx=cx, cy=cy, rank=rank, overflow=overflow, grid=grid,
+                  perm=perm)
+
+
+def sort_field(binned: Binned, field: torch.Tensor) -> torch.Tensor:
+    """Permute a per-particle field into sorted (cell-contiguous) order."""
+    return field[binned.perm]
 
 
 def to_dense(binned: Binned, field: torch.Tensor, fill) -> torch.Tensor:

@@ -202,12 +202,21 @@ def to_fluid_state(sharded: ShardedState, n: int) -> FluidState:
                       p=out[:, 5].contiguous(), step=sharded.step)
 
 
-@functools.cache
 def _fill_columns(fills: tuple, device: torch.device) -> torch.Tensor:
     """[F, 1, 1] float32 fills on ``device``, made once (a tensor made from
-    host values would sync the stream at every call)."""
+    host values would sync the stream at every call); made anew while
+    ``torch.export`` traces, so no traced tensor enters the cache."""
+    if torch.compiler.is_exporting():
+        return _make_fill_columns(fills, device)
+    return _cached_fill_columns(fills, device)
+
+
+def _make_fill_columns(fills: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(fills, dtype=torch.float32,
                         device=device).reshape(-1, 1, 1)
+
+
+_cached_fill_columns = functools.cache(_make_fill_columns)
 
 
 def fill_ghost_cols_multi(mesh: SlabMesh, fields: list, nxl: int,
@@ -416,3 +425,24 @@ def make_sharded_step(params: FluidParams, cfg: IntegrateConfig,
                           alive_count=[h[1] for h in host]))
 
     return step
+
+
+def make_mesh(n_devices: int | None = None, device: str = "cuda") -> SlabMesh:
+    """A ``SlabMesh`` of one slab per card over the first ``n_devices``
+    CUDA cards (all of them by default).  Raises, rather than building a
+    smaller mesh, when there are fewer cards.  ``device="cpu"`` gives
+    ``n_devices`` CPU entries (the reference's virtual CPU mesh).  D slabs
+    on ONE card are ``SlabMesh(n=D)``."""
+    if device == "cpu":
+        if n_devices is None:
+            raise ValueError("make_mesh(device='cpu'): give n_devices")
+        return SlabMesh(["cpu"] * n_devices)
+    if device != "cuda":
+        raise ValueError(f"make_mesh: device {device!r}, want 'cuda' or "
+                         f"'cpu'")
+    have = torch.cuda.device_count()
+    n = n_devices or have
+    if n < 1 or have < n:
+        raise ValueError(f"make_mesh({n_devices}): {have} CUDA card(s); "
+                         f"for D slabs on one card use SlabMesh(n=D)")
+    return SlabMesh([f"cuda:{d}" for d in range(n)])

@@ -305,7 +305,8 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                              init_chunks: int | None = None,
                              refless: bool = False, gen=None,
                              gen_n: int | None = None,
-                             donate: bool = False) -> ShardedSteps:
+                             donate: bool = False,
+                             kernels=None) -> ShardedSteps:
     """The slab step.  Requires ``spec.local_grid.cell_size > params.h``;
     ``n`` (the global particle count) arms overflow recovery.
 
@@ -351,8 +352,13 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
     The segmented driver (``verlet_solver.run_segmented`` over
     ``pure_step``, ``need`` and ``rebin``) is two host loops, the standard
     trajectory bit for bit: the reference's donor-chain rebin works
-    around XLA's donation pairing and has no counterpart here."""
+    around XLA's donation pairing and has no counterpart here.
+
+    ``kernels`` stands in for K1's and K2's wrappers in the step (as
+    ``verlet_solver.make_step_parts``'s: ``kernels.ops`` for
+    ``torch.export``)."""
     from ..models import grid_solver
+    ks = cuda_solver if kernels is None else kernels
     g = spec.local_grid
     D = spec.n_devices
     nxl = spec.nx_local
@@ -519,8 +525,8 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         for d, (p, occ) in enumerate(zip(planes, sim.occ)):
             out = sim.rho_d[d] if rho_into else None
             if fused:
-                rho.append(cuda_solver.density_cuda(p[0], p[1], params, g,
-                                                    occ, out=out))
+                rho.append(ks.density_cuda(p[0], p[1], params, g, occ,
+                                           out=out))
             else:
                 kw = {} if out is None else {"out": out}
                 rho.append(density_fn(p[0], p[1], params, occ=occ, **kw))
@@ -532,7 +538,7 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
             planes[d] = None
             occ = sim.occ[d]
             if fused:
-                new = cuda_solver.forces_integrate_cuda(
+                new = ks.forces_integrate_cuda(
                     x, y, vx, vy, rho[d], sim.ref_xd[d], sim.ref_yd[d],
                     params, cfg, g, occ, refless=refless,
                     disp_lanes=disp_lanes)

@@ -253,6 +253,13 @@ class ShardedSession:
                    donate=donate, segmented=segmented,
                    refless_trigger=refless_trigger, _sim=sim, _n=n)
 
+    def export_run(self, n_steps: int, path: str) -> None:
+        """Artifact of ``run(n_steps)`` (``utils/aot.export_sharded_run``):
+        the slab pure step as a graph, the trigger and the collective
+        rebin rebuilt by the loader from the recorded parameters."""
+        from ..utils import aot
+        aot.export_sharded_run(self, n_steps, path)
+
     def validate(self, rel_tol: float | None = None,
                  acc_abs_tol: float | None = None,
                  raise_on_fail: bool = True):

@@ -157,6 +157,35 @@ with the validator — then checks them:
     the step's peak and the rebin's apart.  ``python3 chip_smoke.py 17``
     runs phase 17 alone and prints no result line.
 
+18. the serving and tooling entry points (run after 17, before 14): the
+    interactive server (``examples/interactive.py``) at full width, an
+    ``InteractiveApp`` on a 1M ``Session`` (16 substeps per frame, the
+    field raster at P = 2) with its frame loop thread and ``make_server``
+    on an ephemeral port, driven over HTTP: ``GET /``, then the loop
+    alone for 0.15 s and 5 back-to-back ``GET /frame.png`` in 10 turns
+    (each kind's frames/s from the loop's own counts over the same stretch
+    of the dam break), 20 x ``POST /impulse`` one frame apart along the
+    self-drive path, ``POST /toggle``, ``GET /stats``; every PNG decoded
+    here with zlib to the latest frame's shape (CRCs checked, not black);
+    counters zeroed before the loop starts: K1 and K2 once per step, K3
+    once per rebin, K4 once per frame; no particle lost (every one
+    resident or parked in the spill; overflow, the recoverable drops,
+    recorded: this scene overflows on its own after ~1,300-2,300 steps),
+    the fields finite and in the box, a kicked frame's max |vx| grown;
+    frames/s, request latency p50/p99, PNG encode ms in the server and
+    alone, impulse to frame latency; then ``examples/demo.py`` (5,041
+    particles, 60 frames, the native sink; K5 16 times per frame),
+    ``examples/sharded_demo.py`` (D = 2 on the card, 12 frames, the
+    restore bitwise, identity exact), ``entry()`` (one K5 step) and
+    ``dryrun_multichip(4)`` (4 slabs on cuda:0); on a fresh 1M Session
+    after 300 steps (phase 4's regime): its artifact (``utils/aot.py``)
+    loaded in a fresh process from a checkpoint, its time to the first
+    finished step and 100 steps bitwise the live Session; the custom
+    operators' host time per step against the direct launchers;
+    ``StepTimer`` over 600 steps against CUDA events; a ``trace()`` of 8
+    steps naming K1 and K2.  ``python3 chip_smoke.py 18`` runs phase 18
+    alone and prints no result line.
+
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
 Without a CUDA device the script fails before printing any result.
@@ -232,6 +261,19 @@ SHARDED_PROBE = {      # phase 17: ShardedSession knobs of each probed
     "owned ceiling": (dict(refless_trigger=True, planar_rebin=True,
                            donate=True), "ceiling"),
 }
+SERVER_N = 1_000_000   # phase 18: the interactive server's Session
+SERVER_GETS = 50       # GET /frame.png requests,
+SERVER_GETS_A_TURN = 5  # back to back, in turns with
+SERVER_ALONE_S = 0.15   # the loop alone
+SERVER_IMPULSES = 20   # POST /impulse requests, one frame apart
+DEMO_N = 5_041         # examples/demo.py's default scene
+DEMO_FRAMES = 60
+SHARDED_DEMO_FRAMES = 12
+DRYRUN_SLABS = 4
+AOT_STEPS = 100        # the artifact's run, checked bitwise
+DISPATCH_STEPS = 200   # pure steps per turn: direct launchers vs operators
+TIMER_STEPS = 600      # StepTimer against CUDA events
+TRACE_STEPS = 8
 PROBE_N = 16_000_000   # phase 14: the footprint probe's scene
 CEILING_STEPS = 100    # phase 14: measured steps of the ceiling run
 CEILING_PROFILED = 8   # phase 14: profiled ceiling steps
@@ -2840,6 +2882,438 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
           f"{card}", flush=True)
     del s, args, sess
 
+def png_rgb(data: bytes):
+    """The uint8 [H, W, 3] array of a PNG as ``render/png.py`` writes it
+    (8-bit RGB, filter 0), decoded here with zlib, every chunk's CRC
+    checked."""
+    import binascii
+    import struct
+    import zlib
+
+    import numpy as np
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        check(binascii.crc32(kind + body) & 0xFFFFFFFF == crc,
+              f"PNG CRC of {kind}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    check((depth, ctype) == (8, 2), f"PNG depth/type {depth}, {ctype}")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]),
+                         np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "PNG filter bytes")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def serve_1m(kernels: list, card: str) -> None:
+    """Phase 18 (a): the interactive server on a 1M Session, over HTTP, in
+    stages (the loop alone, GETs, impulses), each stage's frames/s read
+    from the loop's own counts."""
+    import threading
+    import urllib.request
+
+    from bevy_gpu_fluid_tpu_torch.examples import interactive
+    from bevy_gpu_fluid_tpu_torch.render.png import encode_png
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    app = interactive.InteractiveApp(n=SERVER_N, substeps=FRAME_SUBSTEPS,
+                                     session=True, device=dev)
+    sess = app.sim.session
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(sess.grid.n_row_blocks >= 12 and not sess.planar_rebin
+          and not sess.refless_trigger, "the server's Session posture")
+    spec = app.sim.spec
+    steps0, rebins0 = sess.sim.step, sess.sim.rebin_count
+    stages = []
+
+    def mark(name: str) -> None:
+        stages.append((name, time.perf_counter(), app.frames, sess.sim.step,
+                       sess.sim.rebin_count, sess.overflow))
+
+    zero_launches()
+    t_start = time.perf_counter()
+    app.start()
+    srv = interactive.make_server(app, 0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, method="POST",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            check(r.status == 200, f"POST {path}: {r.status}")
+
+    def wait_frames(k: int) -> None:
+        target = app.frames + k
+        deadline = time.perf_counter() + 30
+        while app.frames < target:
+            check(time.perf_counter() < deadline, "the frame loop stalled")
+            time.sleep(0.001)
+
+    pngs, lat, enc = [], [], []
+    try:
+        with urllib.request.urlopen(url + "/", timeout=30) as r:
+            check(b"pointermove" in r.read(), "GET / page")
+        mark("start")
+        # the loop alone and under back-to-back GETs in short turns, so
+        # both sample the same stretch of the dam break (it rebins more
+        # often as it goes)
+        for _ in range(SERVER_GETS // SERVER_GETS_A_TURN):
+            time.sleep(SERVER_ALONE_S)
+            mark("alone")
+            for _ in range(SERVER_GETS_A_TURN):  # decoded after the loop
+                t = time.perf_counter()
+                with urllib.request.urlopen(url + "/frame.png",
+                                            timeout=30) as r:
+                    pngs.append(r.read())
+                lat.append(time.perf_counter() - t)
+                enc.append(app.encode_s)
+            mark("GETs")
+        for i in range(SERVER_IMPULSES):      # the self-drive path
+            post("/impulse", {"px": spec.width * (0.3 + 0.3 * i /
+                                                  SERVER_IMPULSES),
+                              "py": spec.height * 0.8, "dx": 6.0, "dy": 0.0})
+            wait_frames(1)
+        mode = app.mode
+        post("/toggle", {})
+        check(app.mode != mode, "POST /toggle")
+        wait_frames(2)                        # the last kicked frame lands
+        mark(f"{SERVER_IMPULSES} x POST /impulse, one frame apart, and a "
+             f"toggle")
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        app.stop()
+        torch.cuda.synchronize()
+        mark("stopped")
+        kinds = {}
+        for a, b in zip(stages, stages[1:]):
+            k = kinds.setdefault(b[0], [0.0, 0, 0, 0, a[3], b[3], 0])
+            k[0] += b[1] - a[1]
+            k[1] += b[2] - a[2]
+            k[2] += b[3] - a[3]
+            k[3] += b[4] - a[4]
+            k[5], k[6] = b[3], b[5]
+        for name, (dt, fr, st, rb, s0, s1, ov) in kinds.items():
+            print(f"#   {name}: {dt:.3f} s, {fr} frames = {fr / dt:.1f} "
+                  f"frames/s over steps {s0}-{s1} ({st} of them, a rebin "
+                  f"per {st / max(rb, 1):.2f} steps), overflow {ov} by its "
+                  f"end", flush=True)
+    wall = time.perf_counter() - t_start
+    th.join(timeout=30)
+    check(not th.is_alive(), "the HTTP server thread did not stop")
+    launches = read_launches()
+    steps = sess.sim.step - steps0
+    rebins = sess.sim.rebin_count - rebins0
+    frames = steps // FRAME_SUBSTEPS
+    frame = app.latest_frame()
+    for data in pngs:
+        img = png_rgb(data)
+        check(img.shape == frame.shape and img.any(),
+              f"a served frame: {img.shape} vs {frame.shape}, or black")
+    kicks = list(app.kicks)
+    shown = [k for k in kicks if k["vmax_after"] > k["vmax_before"]]
+    kick_ms = [k["latency_s"] * 1e3 for k in shown] or [float("nan")]
+    direct = []
+    for _ in range(5):
+        t = time.perf_counter()
+        encode_png(frame)
+        direct.append((time.perf_counter() - t) * 1e3)
+    enc_ms = [e * 1e3 for e in enc]
+    sane = planes_sane(sess.sim, sess.cfg)
+    print(f"# phase 18: server: InteractiveApp(n={SERVER_N:,}, substeps="
+          f"{FRAME_SUBSTEPS}, session) init {init_s:.2f} s; frame "
+          f"{frame.shape[1]}x{frame.shape[0]}; {frames} frames ({steps} "
+          f"steps, {rebins} rebins) in {wall:.2f} s = "
+          f"{frames / wall:.1f} frames/s served; GET /frame.png "
+          f"x{SERVER_GETS}: p50 {pct(lat, 0.5) * 1e3:.2f} ms, p99 "
+          f"{pct(lat, 0.99) * 1e3:.2f} ms, max {max(lat) * 1e3:.2f} ms, "
+          f"{len(pngs[-1])} B; PNG encode in the server p50 "
+          f"{pct(enc_ms, 0.5):.2f} ms, alone {pct(direct, 0.5):.2f} ms "
+          f"(median of 5); impulse POST -> first frame showing it (max |vx|"
+          f" grown, {len(shown)} of {len(kicks)} kicked frames): p50 "
+          f"{pct(kick_ms, 0.5):.2f} ms, max {max(kick_ms):.2f} ms; stats "
+          f"{stats}; launches {launches}; {sane}, suspended "
+          f"{sess.suspended}, overflow {sess.sim.overflow} (recoverable "
+          f"drops), lost {sess.sim.lost} on {card}", flush=True)
+    # This scene overflows its cap-8 cells on its own some 1,300-2,300
+    # steps in, the front against the walls (measured on an H100, with no
+    # client in that stage); recovery parks the drops and re-admits them.
+    # So the gate is the guarantee: no particle lost, every one resident
+    # or parked, the fields finite and in the box.
+    check(stats["step"] > steps0 and stats["overflow"] <= sess.overflow,
+          f"GET /stats {stats}")
+    check(sess.sim.lost == 0 and sane["finite_in_box"] and sane["dead_far"]
+          and sane["live"] + sess.suspended == SERVER_N,
+          f"server fields {sane}, lost {sess.sim.lost}, suspended "
+          f"{sess.suspended}")
+    check(steps % FRAME_SUBSTEPS == 0 and rebins >= 1,
+          f"{steps} steps, {rebins} rebins")
+    check(launches["density"] == steps
+          and launches["forces_integrate"] == steps
+          and launches["reslot"] == rebins
+          and launches["field_raster"] == frames
+          and launches["mono_step"] == 0, f"server launches {launches} for "
+          f"{steps} steps, {rebins} rebins, {frames} frames")
+    check(len(kicks) >= 1 and shown, f"no kicked frame showed its impulse "
+          f"({kicks[:3]})")
+    row = next((k for k in kernels if k["name"] == "field_raster"), None)
+    if row is not None:
+        row.update(served_launches=launches["field_raster"],
+                   served_frames=frames)
+
+
+def examples_on_card(card: str) -> None:
+    """Phase 18 (b): the demo, the sharded demo, entry() and the dry run
+    on the card."""
+    import tempfile
+
+    from bevy_gpu_fluid_tpu_torch import entry
+    from bevy_gpu_fluid_tpu_torch.examples import demo, sharded_demo
+
+    with tempfile.TemporaryDirectory() as out:
+        zero_launches()
+        r = demo.run(demo.parse_args(["--n", str(DEMO_N), "--frames",
+                                      str(DEMO_FRAMES), "--out", out]))
+        launches = read_launches()
+        files = sorted(f for f in os.listdir(out) if f.endswith(".ppm"))
+        check(r["written"] + r["dropped"] == DEMO_FRAMES
+              and len(files) == r["written"] >= 1,
+              f"demo sink: {r}, {len(files)} files")
+        with open(os.path.join(out, files[-1]), "rb") as f:
+            check(any(f.read()[20:]), "the demo's last frame is black")
+        check(launches["mono_step"] == DEMO_FRAMES * r["substeps"],
+              f"demo launches {launches}")
+        print(f"# phase 18: demo (verlet, {r['n']:,} particles, "
+              f"{DEMO_FRAMES} frames x {r['substeps']} steps, native sink): "
+              f"{r['fps']:.1f} frames/s (first frame included), written "
+              f"{r['written']}, dropped {r['dropped']}; K5 launches "
+              f"{launches['mono_step']} on {card}", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        zero_launches()
+        r = sharded_demo.run(sharded_demo.parse_args(
+            ["--devices", "2", "--frames", str(SHARDED_DEMO_FRAMES),
+             "--out", out]))
+        launches = read_launches()
+        check(r["restore_bitwise"] and r["identity_exact"]
+              and sum(r["alive"]) == r["n"], f"sharded demo {r}")
+        print(f"# phase 18: sharded_demo D=2 on cuda:0: {r['frames']} "
+              f"frames {r['shape']}, alive {r['alive']}, rebins "
+              f"{r['rebins']}, restore bitwise, identity exact; launches "
+              f"{launches}", flush=True)
+    zero_launches()
+    fn, args = entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(out.x.is_cuda and bool(out.x.isfinite().all()) and out.step == 1
+          and launches["mono_step"] == 1, f"entry(): {launches}")
+    zero_launches()
+    line = entry.dryrun_multichip(DRYRUN_SLABS)
+    launches = read_launches()
+    check(launches["forces_integrate_lanes"] > 0
+          and launches["reslot_clip"] > 0, f"dry run launches {launches}")
+    print(f"# phase 18: entry(): one K5 step on {out.x.device}; {line}; "
+          f"launches {launches}", flush=True)
+
+
+AOT_CHILD = r"""
+import dataclasses, json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+from bevy_gpu_fluid_tpu_torch.utils import aot
+t_import = time.perf_counter() - t0
+sess = vs.Session.restore({ckpt!r}, device="cuda")
+torch.cuda.synchronize()
+t_restore = time.perf_counter() - t0
+one = aot.load_exported({art1!r}, out_like=sess.sim)
+t_load = time.perf_counter() - t0
+first = one(sess.sim)
+torch.cuda.synchronize()
+t_first = time.perf_counter() - t0
+run = aot.load_exported({art!r}, out_like=sess.sim)
+out = run(sess.sim)
+torch.cuda.synchronize()
+t_run = time.perf_counter() - t0
+np.savez({out_npz!r}, **{{f.name: np.asarray(
+    getattr(out, f.name).cpu() if torch.is_tensor(getattr(out, f.name))
+    else getattr(out, f.name)) for f in dataclasses.fields(out)}})
+print(json.dumps(dict(import_s=t_import, restore_s=t_restore,
+                      load_s=t_load, first_step_s=t_first, run_s=t_run,
+                      first_step=first.step, step=out.step)))
+"""
+
+
+def aot_1m(sess, card: str) -> None:
+    """Phase 18 (c): the 1M Session's artifact in a fresh process, bitwise
+    the live Session; the operators' host cost per step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bevy_gpu_fluid_tpu_torch.kernels import ops
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.utils import aot
+
+    tmp = tempfile.mkdtemp()
+    try:
+        ckpt = os.path.join(tmp, "snap.npz")
+        art = os.path.join(tmp, f"run{AOT_STEPS}.bgfexp")
+        art1 = os.path.join(tmp, "run1.bgfexp")
+        out_npz = os.path.join(tmp, "out.npz")
+        sess.save(ckpt)
+        t = time.perf_counter()
+        aot.export_session_run(sess, AOT_STEPS, art)
+        export_s = time.perf_counter() - t
+        aot.export_session_run(sess, 1, art1)
+        code = AOT_CHILD.format(root=ROOT, ckpt=ckpt, art=art, art1=art1,
+                                out_npz=out_npz)
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=ROOT)
+        child_s = time.perf_counter() - t
+        check(r.returncode == 0, f"aot child failed:\n{r.stderr[-3000:]}")
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        r0 = sess.sim.rebin_count
+        sess.run(AOT_STEPS)
+        torch.cuda.synchronize()
+        with np.load(out_npz) as z:
+            diff = []
+            for f in dataclasses.fields(sess.sim):
+                want = getattr(sess.sim, f.name)
+                want = (want.cpu().numpy() if torch.is_tensor(want)
+                        else np.asarray(want))
+                if (z[f.name].dtype != want.dtype
+                        or not np.array_equal(z[f.name], want)):
+                    diff.append(f.name)
+        check(not diff, f"aot run differs from the live Session in {diff}")
+        check(child["step"] == sess.sim.step and child["first_step"]
+              == sess.sim.step - AOT_STEPS + 1, f"aot steps {child}")
+        print(f"# phase 18: aot: the 1M Session's {AOT_STEPS}-step artifact "
+              f"({os.path.getsize(art)} B, exported in {export_s:.2f} s) "
+              f"in a fresh process from a checkpoint: bitwise the live "
+              f"Session over {AOT_STEPS} steps ({sess.sim.rebin_count - r0} "
+              f"rebins; every field, integers and floats): True; the child "
+              f"(kernel library cached): imports {child['import_s']:.2f} s, "
+              f"restored {child['restore_s']:.2f} s, artifact loaded "
+              f"{child['load_s']:.2f} s, FIRST STEP FINISHED "
+              f"{child['first_step_s']:.2f} s after its start, "
+              f"{AOT_STEPS} steps done {child['run_s']:.2f} s; the child's "
+              f"wall {child_s:.2f} s on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the operators' dispatch: host time per pure step, same snapshot
+    pure_op, _, _ = vs.make_step_parts(sess.params, sess.cfg, sess.grid,
+                                       n=sess.n, kernels=ops)
+    snap = sess.sim
+
+    def host_us(pure) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(DISPATCH_STEPS):
+            pure(snap)
+        us = (time.perf_counter() - t) / DISPATCH_STEPS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    host_us(sess._pure_step)
+    host_us(pure_op)
+    turns = [("direct", sess._pure_step), ("operators", pure_op),
+             ("operators", pure_op), ("direct", sess._pure_step)]
+    got = {}
+    for name, pure in turns:
+        got.setdefault(name, []).append(host_us(pure))
+    direct = sum(got["direct"]) / 2
+    opus = sum(got["operators"]) / 2
+    print(f"# phase 18: custom-operator dispatch: a 1M pure step (K1 + K2) "
+          f"enqueues in {direct:.1f} us through the direct launchers and "
+          f"{opus:.1f} us through torch.ops.bgf (turns direct, operators, "
+          f"operators, direct: {got}): +{opus - direct:.1f} us per step "
+          f"({DISPATCH_STEPS} steps a turn, host clock, no sync inside) on "
+          f"{card}", flush=True)
+
+
+def timer_and_trace(sess, card: str) -> None:
+    """Phase 18 (d): StepTimer against CUDA events; a trace of 8 steps."""
+    import tempfile
+
+    from bevy_gpu_fluid_tpu_torch.utils import profiling
+
+    timer = profiling.StepTimer(sess.n)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    done = []
+    with timer.measure(TIMER_STEPS, result=done):
+        start.record()
+        sess.run(TIMER_STEPS)
+        end.record()
+        done.append(sess.sim.xd)
+    ev_ms = start.elapsed_time(end) / TIMER_STEPS
+    tm_ms = timer.seconds / timer.steps * 1e3
+    check(timer.steps == TIMER_STEPS and abs(tm_ms - ev_ms) <= 0.15 * ev_ms,
+          f"StepTimer {tm_ms} vs events {ev_ms} ms/step")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as prof:
+            sess.run(TRACE_STEPS)
+        text = open(os.path.join(d, "trace.json")).read()
+        size = len(text)
+    check("density_kernel" in text and "forces_integrate_kernel" in text,
+          "the trace does not name K1 and K2")
+    k = {e.key: e.count for e in prof.key_averages()
+         if "density_kernel" in e.key or "forces_integrate_kernel" in e.key}
+    print(f"# phase 18: StepTimer over {TIMER_STEPS} 1M steps: "
+          f"{tm_ms:.4f} ms/step ({timer.summary()}) vs CUDA events "
+          f"{ev_ms:.4f} ms/step ({(tm_ms / ev_ms - 1) * 100:+.2f}%); "
+          f"trace() of {TRACE_STEPS} steps: {size} B of Chrome trace naming "
+          f"{k} on {card}", flush=True)
+
+
+def serving_and_tooling(kernels: list, card: str) -> None:
+    """Phase 18: the serving and tooling entry points on the card.  The
+    aot and timer parts take phase 4's regime (a fresh 1M Session after
+    300 steps), not the server's Session, which ends deep in the dam break
+    (a rebin every step or two)."""
+    import bevy_gpu_fluid_tpu_torch as bt
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+
+    t0 = time.perf_counter()
+    serve_1m(kernels, card)
+    gc_collect()
+    examples_on_card(card)
+    extent = N_SIDE * 0.04
+    sess = vs.Session(bt.init_grid(N_SIDE, N_SIDE, 0.04, "cuda"),
+                      bt.FluidParams.demo(),
+                      bt.IntegrateConfig.create(x_min=-1.0,
+                                                x_max=extent + 1.0),
+                      vs.default_grid(0.045, -1.0, extent + 1.0,
+                                      y_max=extent * 1.1 + 1.0),
+                      device="cuda")
+    sess.run(WARM_STEPS)
+    aot_1m(sess, card)
+    timer_and_trace(sess, card)
+    print(f"# phase 18: {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2854,6 +3328,11 @@ def main() -> None:
         sharded_ceiling(kernels, card)
         print(json.dumps({"kernels": kernels}))
         return
+    if sys.argv[1:] == ["18"]:      # phase 18 alone: no result line
+        from bevy_gpu_fluid_tpu_torch.kernels import _build
+        _build.load()
+        serving_and_tooling([], smi_line())
+        return
     kernels, card = paths_1m()
     gc_collect()
     ceiling_mechanisms_1m(kernels, card)
@@ -2865,6 +3344,8 @@ def main() -> None:
     sharded_footprints(card)
     gc_collect()
     sharded_ceiling(kernels, card)
+    gc_collect()
+    serving_and_tooling(kernels, card)
     gc_collect()
     footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))

@@ -935,3 +935,66 @@ def test_sharded_postures_on_card_match_cpu_twins(cuda, posture):
     assert float((sa.x.cpu() - sb.x).abs().max()) <= 1e-5
     assert float((sa.vx.cpu() - sb.vx).abs().max()) <= 1e-4
     assert float(((sa.rho.cpu() - sb.rho) / sb.rho).abs().max()) <= 1e-5
+
+
+# ---- the entry and tooling surface on the card ----------------------------
+
+def test_framesink_fed_by_the_pump_from_the_card(cuda, tmp_path):
+    """Field frames of a Session on the card, pulled by FramePump into the
+    native sink: every file is the frame bit for bit; a CUDA frame pushed
+    directly is refused."""
+    from bevy_gpu_fluid_tpu_torch.native import FrameSink
+    sess = vs.Session(bt.init_grid(24, 24, 0.04, cuda), PARAMS, CFG, GRID,
+                      device=cuda)
+    pump = FramePump(pull=True)
+    frames = []
+    img = sess.run_frame(4)
+    with FrameSink(str(tmp_path), width=img.shape[1],
+                   height=img.shape[0]) as sink:
+        with pytest.raises(ValueError, match="FramePump"):
+            sink.push(img)
+        for i in range(5):
+            out = pump.push(img if i == 0 else sess.run_frame(4))
+            if out is not None:
+                frames.append(out)
+                while not sink.push(out):
+                    pass
+        frames.append(pump.flush())
+        while not sink.push(frames[-1]):
+            pass
+    assert sink.written == 5 and sink.dropped == 0
+    for i, f in enumerate(frames):
+        data = (tmp_path / f"frame_{i:06d}.ppm").read_bytes()
+        assert data.endswith(f.tobytes()) and f.any()
+
+
+def test_aot_round_trip_bitwise_on_card(cuda, tmp_path):
+    """A Session's artifact exported on the card and loaded: bitwise the
+    live run (K1 + K2 and K3 through their operators, a rebin inside)."""
+    import dataclasses as dc
+    from bevy_gpu_fluid_tpu_torch.utils import aot
+    state = bt.init_grid(24, 24, 0.04, cuda)
+    state = state.replace(vx=torch.full((state.n,), 4.0, device=cuda))
+    sess = vs.Session(state, PARAMS, CFG, GRID, device=cuda)
+    sim0 = sess.sim
+    path = str(tmp_path / "run.bgfexp")
+    aot.export_session_run(sess, 12, path)
+    k3 = reslot.reslot_cuda.launches
+    out = aot.load_exported(path, out_like=sim0)(sim0)
+    assert reslot.reslot_cuda.launches - k3 == out.rebin_count - 1 >= 1
+    sess.run(12)
+    for f in dc.fields(out):
+        a, b = getattr(out, f.name), getattr(sess.sim, f.name)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b), f.name
+
+
+def test_interactive_selfdrive_on_card(cuda):
+    from bevy_gpu_fluid_tpu_torch.examples import interactive
+    app = interactive.InteractiveApp(n=4096, substeps=4, session=True,
+                                     device=cuda)
+    app._run_one_frame()
+    k4 = raster.field_density_cuda.launches
+    assert interactive.selfdrive(app, 12) == 0
+    assert raster.field_density_cuda.launches - k4 == 12
+    assert app.kicks and app.sim.overflow == 0

@@ -280,7 +280,18 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.core.simulation, "
             "bevy_gpu_fluid_tpu_torch.parallel.sharded_session, "
             "bevy_gpu_fluid_tpu_torch.parallel.shard_verlet, "
-            "bevy_gpu_fluid_tpu_torch.parallel.shard_render; "
+            "bevy_gpu_fluid_tpu_torch.parallel.shard_render, "
+            # the entry and tooling surface
+            "bevy_gpu_fluid_tpu_torch.entry, "
+            "bevy_gpu_fluid_tpu_torch.utils.aot, "
+            "bevy_gpu_fluid_tpu_torch.utils.profiling, "
+            "bevy_gpu_fluid_tpu_torch.kernels.ops, "
+            "bevy_gpu_fluid_tpu_torch.native, "
+            "bevy_gpu_fluid_tpu_torch.render.png, "
+            "bevy_gpu_fluid_tpu_torch.examples.demo, "
+            "bevy_gpu_fluid_tpu_torch.examples.spin, "
+            "bevy_gpu_fluid_tpu_torch.examples.interactive, "
+            "bevy_gpu_fluid_tpu_torch.examples.sharded_demo; "
             # the very-large-N slab postures, driven: they import lazily
             "import torch, bevy_gpu_fluid_tpu_torch as bt; "
             "torch.set_num_threads(1); "
@@ -297,7 +308,8 @@ def test_port_imports_no_jax():
             "fused=False); s.run(2); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'bevy_gpu_fluid_tpu.')) "
-            "or m == 'bevy_gpu_fluid_tpu']; "
+            "or m == 'bevy_gpu_fluid_tpu' or m == 'PIL' "
+            "or m.startswith('PIL.')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
