@@ -14,8 +14,10 @@
 //
 // The payload only moves, so the kernel copies 32-bit words: one kernel
 // serves float32 and int32 planes, given the fill's bits.  The code plane
-// is int32 or int8.  The output is a new plane: it reads a +-1-row halo of
-// its payload, so it never writes over its own input.
+// is int32 or int8.  The output is a new plane or a dead plane the caller
+// gives (the TPU kernel's `out`), written in full and never read; it reads
+// a +-1-row halo of its payload, so the output never overlaps its own input
+// (the wrapper refuses such an `out`).
 //
 // What bounds it on the H100: device memory.  It reads the payload and the
 // code and writes one plane: at the 1M-particle shapes [696, 8, 640],

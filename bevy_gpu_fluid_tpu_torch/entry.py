@@ -91,7 +91,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> str:
                                  y_max=3.0, n_devices=n_devices,
                                  capacity=1024)
     steps = shard_verlet.make_sharded_verlet_step(params, cfg, spec, mesh,
-                                                  n=84 * 4)
+                                                  n=84 * 4, fused=True)
 
     # ---- phase 1: wall to wall across every slab --------------------------
     state = bt.init_grid(84, 4, 0.04, dev)

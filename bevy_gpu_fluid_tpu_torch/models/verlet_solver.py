@@ -70,6 +70,7 @@ from ..ops.binning import (FAR, bin_particles, cell_coords, cell_index,
 from ..ops.kernels import eos_pressure, self_density
 from ..render import raster
 from . import cuda_solver
+from .grid_solver import StepDiag
 
 SPILL_CAP = 256  # default spill-buffer entries (recovery pool size)
 
@@ -620,19 +621,24 @@ def default_grid(params_h: float, x_min: float, x_max: float, y_max: float,
 
 
 def multi_step(state: FluidState, params: FluidParams, cfg: IntegrateConfig,
-               grid: GridSpec2D, n_steps: int, max_age: int = 64,
-               spill_cap: int = SPILL_CAP):
+               grid: GridSpec2D, n_steps: int, stencils=None,
+               max_age: int = 64, spill_cap: int = SPILL_CAP):
     """n_steps with deferred rebinning and recovery, from a fresh binning;
-    returns (FluidState, dropped, rebins) where ``dropped`` is the
-    cumulative capacity overflow plus reslot losses."""
-    stepf = make_step(params, cfg, grid, max_age, n=state.n)
+    returns (FluidState, diag, rebins) where ``diag.overflow``
+    (``grid_solver.StepDiag``) is the cumulative capacity overflow plus
+    reslot losses.  ``stencils`` selects the unfused step (see
+    ``make_step_parts``).  The reference's ``reslot=`` has no counterpart:
+    K3's wrapper already runs the kernel on a CUDA tensor and its twin on a
+    CPU one, so there is no second reslot to choose."""
+    stepf = make_step(params, cfg, grid, max_age, n=state.n,
+                      stencils=stencils)
     sim = init_dense(state, grid, spill_cap)
     for _ in range(n_steps):
         sim = stepf(sim)
     x, y, vx, vy, rho = extract_fields(sim, grid, params, state.n)
     out = state.replace(x=x, y=y, vx=vx, vy=vy, rho=rho,
                         p=eos_pressure(rho, params), step=sim.step)
-    return out, sim.overflow + sim.lost, sim.rebin_count
+    return out, StepDiag(overflow=sim.overflow + sim.lost), sim.rebin_count
 
 
 def _card_bytes(total_bytes, device):

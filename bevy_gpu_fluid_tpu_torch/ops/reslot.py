@@ -317,11 +317,33 @@ def _decode(code: torch.Tensor):
     return c, kj, dx, r - (dx + 1) * 3 - 1
 
 
-def apply_code_torch(payload, code, occ, grid: GridSpec2D, fill):
+def _check_out(out, payload) -> None:
+    """Refuse an ``out`` plane K7 cannot write: another shape, dtype or
+    device than the payload's, not contiguous, or overlapping the payload
+    (the kernel reads a +-1-row halo of its payload, so a write over it
+    would corrupt rows still to be read)."""
+    if (out.shape != payload.shape or out.dtype != payload.dtype
+            or out.device != payload.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out: want a contiguous {payload.dtype} {tuple(payload.shape)} "
+            f"plane on {payload.device}, got {out.dtype} {tuple(out.shape)} "
+            f"on {out.device}")
+    size = payload.numel() * payload.element_size()
+    if (out.data_ptr() < payload.data_ptr() + size
+            and payload.data_ptr() < out.data_ptr() + size):
+        raise ValueError("out overlaps the payload: K7 reads a +-1-row "
+                         "halo of its payload and never writes over it")
+
+
+def apply_code_torch(payload, code, occ, grid: GridSpec2D, fill, out=None):
     """Plain PyTorch twin of kernel K7: each output slot of an interior row
     whose code names source slot (row + dy, kj, col + dx) (columns wrap
     modulo nx_pad) with kj below its row block's bound in ``occ`` takes the
-    payload there; every other slot, and the ghost blocks, ``fill``."""
+    payload there; every other slot, and the ghost blocks, ``fill``.
+    Written into ``out`` when given (see ``apply_code_cuda``)."""
+    if out is not None:
+        _check_out(out, payload)
+        return out.copy_(apply_code_torch(payload, code, occ, grid, fill))
     R, cap, C = payload.shape
     dev = payload.device
     c, kj, dx, dy = _decode(code)
@@ -334,30 +356,43 @@ def apply_code_torch(payload, code, occ, grid: GridSpec2D, fill):
     return torch.where(ok, vals, fill)
 
 
-def apply_code_cuda(payload, code, occ, grid: GridSpec2D, fill):
+def apply_code_cuda(payload, code, occ, grid: GridSpec2D, fill, out=None):
     """Route one payload plane (float32 or int32) through a code plane
     (int32 or int8); same contract as ``apply_code_torch``.  ``occ`` is the
     PRE-rebin ``block_kmax3``, the one the code was selected under.
-    Returns a new plane: the kernel reads a +-1-row halo of its payload, so
-    it can never write over its input."""
+
+    Returns a new plane, or writes into ``out`` (the reference's ``out``: a
+    DEAD plane of the payload's shape, dtype and device, never read) and
+    returns it.  The kernel reads a +-1-row halo of its payload, so ``out``
+    may not overlap the payload (ValueError).  ``apply_planes`` and the
+    Session's planar rebin keep fresh outputs: the reference writes into
+    dead planes to chain around XLA's donation pairing (its donor chain),
+    which the port does not need, and no measured posture's rebin peaks
+    above its step (``verlet_solver.FOOTPRINTS``; the sharded ceiling's
+    rebin 7.246 slab-plane-footprints under its step's 8.000).
+    ``launches`` counts every launch, ``launches_out`` those into ``out``."""
     dev = _build.check_planes(grid, occ,
                               dtypes={"payload": (torch.float32, torch.int32),
                                       "code": CODE_DTYPES},
                               payload=payload, code=code)
     if dev.type == "cpu":
-        return apply_code_torch(payload, code, occ, grid, fill)
+        return apply_code_torch(payload, code, occ, grid, fill, out)
+    if out is not None:
+        _check_out(out, payload)
     bits = np.array(fill, dtype=np.float32 if payload.is_floating_point()
                     else np.int32).view(np.int32)
-    out = torch.empty_like(payload)
+    dst = torch.empty_like(payload) if out is None else out
     _build.launch(
         "bgf_apply_code", dev, payload.data_ptr(), code.data_ptr(),
-        occ.data_ptr(), out.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad,
+        occ.data_ptr(), dst.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad,
         grid.row_block, grid.n_row_blocks, code.element_size(), int(bits))
     apply_code_cuda.launches += 1
-    return out
+    apply_code_cuda.launches_out += int(out is not None)
+    return dst
 
 
 apply_code_cuda.launches = 0
+apply_code_cuda.launches_out = 0
 
 
 # Whole-plane torch passes with many temporaries (``taken_mask`` here,

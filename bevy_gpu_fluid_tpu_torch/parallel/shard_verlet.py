@@ -3,9 +3,10 @@
 
 Each slab keeps the single-card Verlet state (``models/verlet_solver.py``):
 dense planes frozen between rebins, on its own local grid, with the
-neighbours' real edge columns copied into its ghost columns.  A step is,
-per slab: the position and velocity halo (``shard.fill_ghost_cols_multi``),
-K1 (density), the density halo, and K2 (forces + integrate + trigger) with
+neighbours' real edge columns copied into its ghost columns.  The fused
+step (``fused=True``, ``ShardedSession``'s default) is, per slab: the
+position and velocity halo (``shard.fill_ghost_cols_multi``), K1
+(density), the density halo, and K2 (forces + integrate + trigger) with
 its displacement max over the slab's real columns only (``disp_lanes``).
 
 The rebin is COLLECTIVE: the trigger is the any over the slabs' ``disp2``
@@ -301,7 +302,7 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                              max_age: int = 64, n: int | None = None,
                              spill_cap: int = SPILL_CAP,
                              planar: bool | None = None, *,
-                             stencils=None, fused: bool = True,
+                             stencils=None, fused: bool = False,
                              init_chunks: int | None = None,
                              refless: bool = False, gen=None,
                              gen_n: int | None = None,
@@ -310,14 +311,15 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
     """The slab step.  Requires ``spec.local_grid.cell_size > params.h``;
     ``n`` (the global particle count) arms overflow recovery.
 
-    The step: ``fused=True`` (the default) runs K1 + K2 per slab;
-    ``fused=False`` the ``stencils`` pair (None: ``grid_solver.
-    XLA_STENCILS``, as the reference; ``cuda_solver.make_stencils(g)`` for
+    The step: ``fused=False`` (the default, as the reference's: its plain
+    stencils are the CI reference) runs the ``stencils`` pair (None:
+    ``grid_solver.XLA_STENCILS``; ``cuda_solver.make_stencils(g)`` for
     K1 + K8), then Euler, bounce and the trigger's max over the slab's real
-    columns as torch ops (``cuda_solver.integrate_into``).  The rebin: the
-    fused reslot K3 or, with ``planar`` (None: ``slab_default`` on the
-    memory each slab gets of its card), the planar K6 + 5 x K7 (bitwise
-    the same rebin).
+    columns as torch ops (``cuda_solver.integrate_into``); ``fused=True``
+    runs K1 + K2 per slab, the production step (``ShardedSession``'s
+    default).  The rebin: the fused reslot K3 or, with ``planar`` (None:
+    ``slab_default`` on the memory each slab gets of its card), the planar
+    K6 + 5 x K7 (bitwise the same rebin).
 
     The memory-ceiling postures (the reference's, each the sharded twin of
     the single card's in ``models/verlet_solver.py``):

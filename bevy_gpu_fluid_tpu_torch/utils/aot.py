@@ -183,7 +183,7 @@ def export_sharded_run(sess, n_steps: int, path: str) -> None:
     D = spec.n_devices
     n = sess.n if fp["recovery"] else None
     steps = make_sharded_verlet_step(sess.params, sess.cfg, spec, sess.mesh,
-                                     n=n, planar=False,
+                                     n=n, planar=False, fused=True,
                                      refless=sess.refless_trigger,
                                      kernels=ops)
     blank = {f.name: None for f in dataclasses.fields(ShardedDenseSim)
@@ -237,7 +237,7 @@ def _sharded_parts(meta: dict, modules: dict, sim):
     mesh = SlabMesh([x.device for x in sim.xd])
     steps = make_sharded_verlet_step(
         ops.params_of(meta["params"]), ops.cfg_of(meta["cfg"]), spec, mesh,
-        n=meta["n"], planar=False, refless=meta["refless"])
+        n=meta["n"], planar=False, fused=True, refless=meta["refless"])
     step_mod = modules["step"]
 
     def pure(sim):

@@ -123,8 +123,8 @@ with the validator — then checks them:
     box, overflow and lost 0, K6 once and K7 five times per rebin, K3 and
     K5 never, refless K2 and K1 once per step, its peak memory against the
     card's; a profiled step breakdown, one rebin timed, the recovery
-    collect's peak on the ceiling planes; K2 refless timed and bounded on
-    the ceiling planes.
+    collect's peak on the ceiling planes; K2 refless and K1 ``out=`` (into
+    the dead rho) timed and bounded on the ceiling planes.
 
 17. the sharded very-large-N postures (run after 16, before 14): (a) on
     slab 1 of a refless D = 2 session's 1M planes, K2 refless with the
@@ -185,6 +185,32 @@ with the validator — then checks them:
     ``StepTimer`` over 600 steps against CUDA events; a ``trace()`` of 8
     steps naming K1 and K2.  ``python3 chip_smoke.py 18`` runs phase 18
     alone and prints no result line.
+
+19. the reference's chip tools (``bevy_gpu_fluid_tpu_torch/tools/``; run
+    after 18, before 14), called in-process at their reference sizes with
+    every gate checked and the launch counters zeroed before each: first
+    K7 ``out=`` on 1M planes where the trigger fires (bitwise its
+    fresh-output call and its twin, int32 and int8 codes, float32 and
+    int32 payloads, over a garbage plane; an overlapping ``out`` refused;
+    timed and bounded: K7's row gains ``out_*`` keys, with
+    ``out_launches`` counted on phase 12's planar path, 0); the
+    long-horizon pool (``validate_longrun.pool``: 102,400 particles, 20,000
+    steps on ``[80, 8, 2560]``, K5 every step and K3 every rebin, overflow
+    and lost 0, finite, max |v| < 1); the 99,856-particle restore bitwise;
+    the D = 8 dry run on the one card at 102,400 x 150 steps in the default
+    (unfused plain stencils) and the fused form (every gate of
+    ``tools/dryrun_d8.py``; K3 with the slab clip D times per rebin, K1 and
+    K2 with the lane window D times per step only when fused); the mono A/B
+    at 5,041, 10,000, 40,000 and 100,000 particles (K5 against K1 + K2 in
+    the differential window; the crossover in row blocks printed);
+    ``bench_scale`` at 96M (held to the deep-scene rule: nothing lost,
+    every particle resident or parked, finite; the tool's own gate, the
+    reference's overflow 0, and the steps' peak against the posture's
+    ``FOOTPRINTS`` budget are recorded, and a miss of either is printed
+    as a known failure), ``bench_sharded`` at 1M D = 1 and its
+    ``--frames``, and ``bench_aot`` at 1M (each phase a fresh process; the
+    two cold starts' density sums equal); the phase's wall time.  ``python3
+    chip_smoke.py 19`` runs phase 19 alone and prints no result line.
 
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -274,6 +300,10 @@ AOT_STEPS = 100        # the artifact's run, checked bitwise
 DISPATCH_STEPS = 200   # pure steps per turn: direct launchers vs operators
 TIMER_STEPS = 600      # StepTimer against CUDA events
 TRACE_STEPS = 8
+MONO_AB_N = (5_041, 10_000, 40_000, 100_000)   # phase 19: the mono A/B
+DRYRUN_N = 102_400     # phase 19: the D = 8 dry run (tools/dryrun_d8.py)
+DRYRUN_D = 8
+DRYRUN_STEPS = 150
 PROBE_N = 16_000_000   # phase 14: the footprint probe's scene
 CEILING_STEPS = 100    # phase 14: measured steps of the ceiling run
 CEILING_PROFILED = 8   # phase 14: profiled ceiling steps
@@ -359,7 +389,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernels, reps: int, tries: int = 3) -> dict:
+def device_ms(fn, kernels, reps: int, tries: int = 3,
+              required: bool = True) -> dict | None:
     """Mean device milliseconds of each CUDA kernel named in ``kernels``
     (each launched once per call of ``fn``), from torch.profiler's device
     trace: the kernels alone, without the wrapper's host work and other
@@ -367,7 +398,8 @@ def device_ms(fn, kernels, reps: int, tries: int = 3) -> dict:
     profiler drops a record now and then, and dividing by ``reps`` would
     then read low (a ceiling K2 read 14.9 and 29.9 ms for 44.8 ms
     launches).  A trace with no record of a kernel is taken again, up to
-    ``tries`` traces."""
+    ``tries`` traces; then the script fails, or, not ``required``, this
+    returns None."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -383,13 +415,16 @@ def device_ms(fn, kernels, reps: int, tries: int = 3) -> dict:
         if all(len(u) == 1 and u[0][0] > 0 and u[0][1] >= 1
                for u in us.values()):
             return {k: u[0][0] / 1e3 / u[0][1] for k, u in us.items()}
-    check(False, f"profiler shows no device time for one of {kernels} in "
-          f"{tries} traces: {us}")
+    check(not required, f"profiler shows no device time for one of "
+          f"{kernels} in {tries} traces: {us}")
+    return None
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> float:
+def kernel_ms(fn, kernel: str, reps: int,
+              required: bool = True) -> float | None:
     """``device_ms`` of one kernel that ``fn`` launches once per call."""
-    return device_ms(fn, [kernel], reps)[kernel]
+    ms = device_ms(fn, [kernel], reps, required=required)
+    return None if ms is None else ms[kernel]
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -702,23 +737,7 @@ def paths_1m() -> tuple[list, str]:
     del got, want, rho_k, rho_t
 
     # ---- phase 4: the main path ------------------------------------------
-    wrappers = {"density": cuda_solver.density_cuda,
-                "forces_integrate": cuda_solver.forces_integrate_cuda,
-                "reslot": reslot.reslot_cuda,
-                "field_raster": raster.field_density_cuda,
-                "mono_step": cuda_solver.mono_step_cuda,
-                "forces": cuda_solver.forces_cuda,
-                "select": reslot.select_cuda,
-                "apply_code": reslot.apply_code_cuda}
-
-    def zero_counts():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def counts():
-        return {k: w.launches for k, w in wrappers.items()}
-
-    zero_counts()
+    zero_launches()
     rebins0 = sess.sim.rebin_count
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -729,7 +748,7 @@ def paths_1m() -> tuple[list, str]:
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = read_launches()
     rebins = sess.sim.rebin_count - rebins0
     ms_step = start.elapsed_time(end) / MAIN_STEPS
     sim = sess.sim
@@ -758,6 +777,8 @@ def paths_1m() -> tuple[list, str]:
           f"K3 launches {launches['reslot']} != {rebins} rebins")
     check(launches["mono_step"] == 0 and launches["field_raster"] == 0,
           f"K4/K5 launched on the 1M step path: {launches}")
+    check(launches["apply_code_out"] == 0,
+          f"K7 out= launched on the 1M step path: {launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     # where a 1M step's time goes: device time by kernel over BREAKDOWN_STEPS
@@ -796,22 +817,23 @@ def paths_1m() -> tuple[list, str]:
     # ---- phase 5: overflow recovery --------------------------------------
     rcfg = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
     rgrid = vs.default_grid(0.045, -1.0, 2.5, y_max=3.0)
-    zero_counts()
+    zero_launches()
     rsess = vs.Session(bt.init_grid(3, 3, 0.004, dev), params, rcfg, rgrid,
                        device=dev)
     over0 = rsess.overflow
     rsess.run(60)
     ids = torch.sort(torch.cat([rsess.sim.idx_d.reshape(-1),
                                 rsess.sim.sidx])).values[-rsess.n:]
+    rl = read_launches()
     print(f"# phase 5: recovery: overflow at init {over0}, readmitted "
           f"{rsess.readmitted}, suspended {rsess.suspended}, rebins "
-          f"{rsess.sim.rebin_count - 1}, launches {counts()}", flush=True)
+          f"{rsess.sim.rebin_count - 1}, launches {rl}", flush=True)
     check(over0 == 1, f"recovery scene overflow at init {over0}")
     check(rsess.readmitted >= 1, "recovery scene: nothing readmitted")
     check(torch.equal(ids.cpu(), torch.arange(rsess.n, dtype=torch.int32)),
           "recovery scene: ids are not exactly {0..n-1}")
-    check(counts()["mono_step"] == 60 and counts()["density"] == 0,
-          f"recovery scene (7 row blocks) did not step on K5: {counts()}")
+    check(rl["mono_step"] == 60 and rl["density"] == 0,
+          f"recovery scene (7 row blocks) did not step on K5: {rl}")
 
     fused_recovery = rsess.sim
 
@@ -901,7 +923,7 @@ def paths_1m() -> tuple[list, str]:
         **{f"p{FIELD_P_WIDE}_{k}": v for k, v in wide.items()}))
     del s
     sess.run_frame(FRAME_SUBSTEPS, FIELD_P)
-    zero_counts()
+    zero_launches()
     frame_ms = {}
     shapes = set()
     for pull in (False, True):
@@ -921,7 +943,7 @@ def paths_1m() -> tuple[list, str]:
         check(got == FRAMES_1M, f"pump returned {got} of {FRAMES_1M}")
         lit = (last.astype("int32") if pull else last.int()).sum(-1) > 30
         check(bool(lit.any()), "1M field frame is black")
-    launches = counts()
+    launches = read_launches()
     n_frames = 2 * FRAMES_1M
     print(f"#   1M frame path, Session.run_frame({FRAME_SUBSTEPS}) + field "
           f"frame {sorted(shapes)}: {frame_ms[False]:.3f} ms/frame "
@@ -1057,7 +1079,7 @@ def paths_1m() -> tuple[list, str]:
                              raster_width=512, y_view_max=y_view, device=dev)
         sim9.run_frame(FRAME_SUBSTEPS, "density")        # warm-up
         sim9.run_frames(2, FRAME_SUBSTEPS, "field")
-        zero_counts()
+        zero_launches()
         step0 = sim9._session.sim.step
         field_frames = 0
         fps = {}
@@ -1087,7 +1109,7 @@ def paths_1m() -> tuple[list, str]:
             lit = (torch.from_numpy(last) if pull else last).int().sum(-1)
             check(bool((lit > 30).any()), f"{n} {label}: black frame")
         steps = sim9._session.sim.step - step0
-        launches = counts()
+        launches = read_launches()
         line = (f"{n} particles ({grid9.n_row_blocks} row blocks), "
                 f"{FRAME_SUBSTEPS} substeps/frame: " + ", ".join(
                     f"{k} {v:.1f} FPS" for k, v in fps.items()))
@@ -1165,7 +1187,7 @@ def paths_1m() -> tuple[list, str]:
     us = vs.Session(state, params, cfg, grid, device=dev,
                     stencils=cuda_solver.make_stencils(grid))
     fs10 = vs.Session(state, params, cfg, grid, device=dev)
-    zero_counts()
+    zero_launches()
     r0 = us.sim.rebin_count
     torch.cuda.synchronize()
     start.record()
@@ -1173,7 +1195,7 @@ def paths_1m() -> tuple[list, str]:
     end.record()
     end.synchronize()
     u_ms = start.elapsed_time(end) / UNFUSED_STEPS
-    launches = counts()
+    launches = read_launches()
     u_rebins = us.sim.rebin_count - r0
     fs10.run(UNFUSED_STEPS)
     ua, fa = us.state(), fs10.state()
@@ -1294,7 +1316,7 @@ def paths_1m() -> tuple[list, str]:
     run_ms, run_counts, run_rebins = {}, {}, {}
     for steps in (WARM_STEPS, MAIN_STEPS):
         for label, sess_ in (("fused", fs), ("planar", ps)):
-            zero_counts()
+            zero_launches()
             r0 = sess_.sim.rebin_count
             torch.cuda.synchronize()
             start.record()
@@ -1302,7 +1324,7 @@ def paths_1m() -> tuple[list, str]:
             end.record()
             end.synchronize()
             run_ms[label] = start.elapsed_time(end) / steps
-            run_counts[label] = counts()
+            run_counts[label] = read_launches()
             run_rebins[label] = sess_.sim.rebin_count - r0
             lc = run_counts[label]
             rb = run_rebins[label]
@@ -1326,6 +1348,14 @@ def paths_1m() -> tuple[list, str]:
     for k in kernels:
         if k["name"] in ("select", "apply_code"):
             k["launches"] = run_counts["planar"][k["name"]]
+    # K7 into a given plane (out=): no rebin of the port launches it (the
+    # planar rebin keeps fresh outputs); counted on the planar path, the
+    # path that launches K7, and held to that; phase 19 times and checks it
+    k7_out = run_counts["planar"]["apply_code_out"]
+    check(k7_out == 0, f"K7 out= launched on the planar path: {k7_out}")
+    next(k for k in kernels if k["name"] == "apply_code").update(
+        out_launches=k7_out,
+        out_launches_path=f"planar Session, {MAIN_STEPS} steps")
     # peak memory across one rebin, from a copy of the same sim each time
     while not fs._need(fs.sim):
         fs.sim = fs._pure_step(fs.sim)
@@ -1379,7 +1409,7 @@ def paths_1m() -> tuple[list, str]:
                                      y_max=extent * 1.1 + 1.0)
     est = bt.init_grid(N_SIDE, N_SIDE, 0.04, dev)
     est, wdiag = cuda_solver.multi_step(est, params, cfg, egrid, EAGER_WARM)
-    zero_counts()
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
@@ -1387,7 +1417,7 @@ def paths_1m() -> tuple[list, str]:
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = read_launches()
     e_ms = start.elapsed_time(end) / EAGER_STEPS
     finite = all(bool(torch.isfinite(t).all()) for t in
                  (est.x, est.y, est.vx, est.vy, est.rho, est.ax, est.ay))
@@ -1514,16 +1544,18 @@ def paths_1m() -> tuple[list, str]:
     return kernels, card
 
 def counter_wrappers() -> dict:
-    """Launch counters by kernel-table name: (wrapper, counter attribute).
-    The refless K2 counts in its own attribute besides K2's, and so do its
-    form with a lane window and K1 into a given plane; the K8 row of the
-    slab path reads K8's own counter in a run of that path alone."""
+    """Launch counters by kernel-table name: (wrapper, counter attribute):
+    the tools' counters (``tools.counters``) and the variants'.  The
+    refless K2 counts in its own attribute besides K2's, and so do its
+    form with a lane window, K1 into a given plane and K7 into a given
+    plane; the K8 row of the slab path reads K8's own counter in a run of
+    that path alone."""
+    from bevy_gpu_fluid_tpu_torch import tools
     from bevy_gpu_fluid_tpu_torch.models import cuda_solver
     from bevy_gpu_fluid_tpu_torch.ops import reslot
     from bevy_gpu_fluid_tpu_torch.render import raster
     k2 = cuda_solver.forces_integrate_cuda
-    return {"density": (cuda_solver.density_cuda, "launches"),
-            "forces_integrate": (k2, "launches"),
+    return {**tools.counters(),
             "forces_integrate_refless": (k2, "launches_refless"),
             "forces_integrate_lanes": (k2, "launches_lanes"),
             "forces_integrate_refless_lanes": (k2, "launches_refless_lanes"),
@@ -1533,10 +1565,7 @@ def counter_wrappers() -> dict:
             "reslot_clip": (reslot.reslot_cuda, "launches_clip"),
             "select_clip": (reslot.select_cuda, "launches_clip"),
             "field_raster": (raster.field_density_cuda, "launches"),
-            "mono_step": (cuda_solver.mono_step_cuda, "launches"),
-            "forces": (cuda_solver.forces_cuda, "launches"),
-            "select": (reslot.select_cuda, "launches"),
-            "apply_code": (reslot.apply_code_cuda, "launches")}
+            "apply_code_out": (reslot.apply_code_cuda, "launches_out")}
 
 
 def zero_launches() -> None:
@@ -1552,13 +1581,9 @@ def read_launches() -> dict:
 def scale_scene(side: int):
     """tools/bench_scale.py's scene for side x side particles: (params,
     cfg, grid) of its box, skin 1.75."""
-    import bevy_gpu_fluid_tpu_torch as bt
-    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
-    extent = side * 0.04
-    return (bt.FluidParams.demo(),
-            bt.IntegrateConfig.create(x_min=-1.0, x_max=extent + 1.0),
-            vs.default_grid(0.045, -1.0, extent + 1.0,
-                            y_max=extent * 1.1 + 1.0, skin_factor=1.75))
+    from bevy_gpu_fluid_tpu_torch import tools
+    sc = tools.dam_break(side * side, None, 1.75, state=False)
+    return sc.params, sc.cfg, sc.grid
 
 
 def plane_bytes(grid) -> int:
@@ -2880,6 +2905,33 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
           f"{c_bound['bound_ops'] / 1e9:.1f} GFLOP); launches on the "
           f"ceiling path {row['launches']} in {CEILING_STEPS} steps on "
           f"{card}", flush=True)
+    # K1 into the dead rho plane (the ceiling's owned planes) on the same
+    # planes: the profiler's time and its bound (x, y read, rho written)
+    k1c = lambda: cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ,
+                                           out=s.rho_d)
+    # the profiler keeps some of a long kernel's records only (3 of 8 in
+    # the breakdown above), so take ten launches a trace; three traces that
+    # keep none leave the CUDA-events time alone on the record
+    k1c_ms = kernel_ms(k1c, "density_kernel", 10, required=False)
+    k1_bound = bound(3 * 4.0 * s.xd.numel() + 4.0 * s.occ.numel(),
+                     need_taps * DENSITY_OPS)
+    check(launches["density_out_slab"] == CEILING_STEPS,
+          f"K1 into the dead rho on the ceiling path: {launches}")
+    next(k for k in kernels if k["name"] == "density").update(
+        ceiling_out_ms=k1c_ms, ceiling_out_ms_events=k1_ms,
+        ceiling_out_launches=launches["density_out_slab"],
+        ceiling_bound_ms=k1_bound["bound_ms"],
+        ceiling_bound_by=k1_bound["bound_by"],
+        ceiling_shape=list(grid.plane_shape))
+    print(f"#   K1 out= (into the dead rho) on the ceiling planes: "
+          f"{'no record in 3 traces' if k1c_ms is None else k1c_ms} ms "
+          f"(profiler, 10 calls; {k1_ms:.3f} by CUDA events "
+          f"above), bound {k1_bound['bound_ms']:.3f} ms by "
+          f"{k1_bound['bound_by']} ({k1_bound['bound_bytes'] / 1e9:.2f} GB, "
+          f"{k1_bound['bound_ops'] / 1e9:.1f} GFLOP): the events' time at "
+          f"{k1_bound['bound_ms'] / k1_ms:.1%} of its bound; launches on "
+          f"the ceiling path {launches['density_out_slab']} in "
+          f"{CEILING_STEPS} steps on {card}", flush=True)
     del s, args, sess
 
 def png_rgb(data: bytes):
@@ -3315,6 +3367,313 @@ def serving_and_tooling(kernels: list, card: str) -> None:
 
 
 
+def k7_out_1m(kernels: list, card: str) -> None:
+    """Phase 19, first part: K7 writing into a given plane (``out=``) on
+    1M planes where the rebin trigger fires (phase 11's kind: phase 4's
+    scene after its warm-up), bitwise its fresh-output call and its twin
+    for int32 and int8 codes and float32 and int32 payloads, over a
+    garbage plane; an overlapping ``out`` refused; timed and bounded.  The
+    numbers join K7's row (``out_*`` keys), whose ``out_launches`` phase
+    12 counted on the planar path."""
+    from bevy_gpu_fluid_tpu_torch import tools
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.ops import reslot
+
+    dev = torch.device("cuda", 0)
+    sess = vs.Session(*tools.dam_break(N_SIDE * N_SIDE, dev)[:4], device=dev)
+    grid = sess.grid
+    sess.run(WARM_STEPS)
+    while not sess._need(sess.sim):
+        sess.sim = sess._pure_step(sess.sim)
+    s = sess.sim
+    occ = s.occ
+    planes = (s.xd, s.yd, s.vxd, s.vyd, s.idx_d)
+    fills = (1e9, 1e9, 0.0, 0.0, -1)
+    zero_launches()
+    err = 0.0
+    for code_dtype in (torch.int32, torch.int8):
+        code, _ = reslot.select_cuda(s.xd, s.yd, grid, occ, code_dtype)
+        for plane, fill in zip(planes, fills):
+            fresh = reslot.apply_code_cuda(plane, code, occ, grid, fill)
+            out = torch.full_like(plane, 7)
+            got = reslot.apply_code_cuda(plane, code, occ, grid, fill,
+                                         out=out)
+            twin = reslot.apply_code_torch(plane, code, occ, grid, fill)
+            same = (got is out and bits_equal(got, fresh)
+                    and bits_equal(got, twin))
+            err = max(err, *(float((got.double() - w.double()).abs().max())
+                             for w in (fresh, twin)))
+            check(same, f"K7 out= ({plane.dtype} payload, {code_dtype} "
+                  f"code) not bitwise its fresh output and its twin")
+        try:
+            reslot.apply_code_cuda(s.xd, code, occ, grid, 1e9, out=s.xd)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "K7 took an out= that overlaps its payload")
+    counts = read_launches()
+    check(counts["apply_code_out"] == 10 and counts["apply_code"] == 20,
+          f"K7 launches in the out= check: {counts}")
+    code, _ = reslot.select_cuda(s.xd, s.yd, grid, occ)
+    dst, dst_t = torch.empty_like(s.xd), torch.empty_like(s.xd)
+    k7o = lambda: reslot.apply_code_cuda(s.xd, code, occ, grid, 1e9, out=dst)
+    plane_b = 4.0 * s.xd.numel()
+    b = bound(2 * plane_b + 4.0 * code.numel() + 4.0 * occ.numel(), 0.0)
+    out_row = dict(
+        out_max_abs_err=err, out_ms=kernel_ms(k7o, "apply_code_kernel", 50),
+        out_wrapper_ms=cuda_ms(k7o, 50),
+        out_plain_ms=cuda_ms(lambda: reslot.apply_code_torch(
+            s.xd, code, occ, grid, 1e9, out=dst_t), 3),
+        out_library_ms=None, out_shape=list(grid.plane_shape),
+        **{f"out_{k}": v for k, v in b.items()})
+    row = next((k for k in kernels if k["name"] == "apply_code"), None)
+    if row is not None:         # absent when phase 19 runs alone
+        row.update(out_row)
+    path = (f"{row['out_launches']} on phase 12's planar path" if row
+            else "not counted: phase 12 not run")
+    print(f"# phase 19: K7 out= on the 1M planes where the trigger fires "
+          f"(step {s.step}): bitwise its fresh output and its twin (max "
+          f"|diff| {err}), int32 and int8 codes, 4 float32 and 1 int32 "
+          f"payloads over a garbage plane; an overlapping out refused; "
+          f"kernel {out_row['out_ms']:.4f} ms (profiler), wrapper "
+          f"{out_row['out_wrapper_ms']:.4f} ms, twin "
+          f"{out_row['out_plain_ms']:.4f} ms, bound "
+          f"{out_row['out_bound_ms']:.4f} ms by {out_row['out_bound_by']} "
+          f"at {grid.plane_shape}; launches of K7 out=: {path}; on {card}",
+          flush=True)
+    del s, sess, planes, code, dst, dst_t
+
+
+def reference_tools(kernels: list, card: str) -> None:
+    """Phase 19: the reference's chip tools, ported
+    (``bevy_gpu_fluid_tpu_torch/tools/``), at their reference sizes, every
+    gate of each checked; the launch counters zeroed before each and read
+    after it."""
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.tools import (bench_aot, bench_mono_ab,
+                                                bench_scale, bench_sharded,
+                                                dryrun_d8, validate_longrun)
+
+    t_phase = time.perf_counter()
+    k7_out_1m(kernels, card)
+    gc_collect()
+
+    # the long-horizon pool: every step on K5, every rebin on K3
+    zero_launches()
+    pool = validate_longrun.pool()
+    ln = read_launches()
+    print(f"# phase 19: pool {pool['n']} particles x {pool['steps']} steps "
+          f"on {pool['grid']} ({pool['n_row_blocks']} row blocks): overflow "
+          f"{pool['overflow']}, lost {pool['lost']}, finite "
+          f"{pool['finite']}, max |v| {pool['max_v']:.4f} (< 1.0), rebins "
+          f"{pool['rebins']}, wall {pool['wall_s']:.2f} s "
+          f"({pool['wall_s'] / pool['steps'] * 1e3:.4f} ms/step); launches "
+          f"K5 {ln['mono_step']}, K3 {ln['reslot']}, K1 {ln['density']}, "
+          f"K2 {ln['forces_integrate']} on {card}", flush=True)
+    check(pool["ok"] and pool["lost"] == 0 and pool["steps"] == 20_000,
+          f"the long-horizon pool: {pool}")
+    check(ln["mono_step"] == pool["steps"]
+          and ln["reslot"] == pool["rebins"] - 1
+          and ln["density"] == ln["forces_integrate"] == 0,
+          f"the pool's step kernels: {ln}")
+    for k in kernels:
+        if k["name"] == "mono_step":
+            k.update(pool_launches=ln["mono_step"], pool_grid=pool["grid"],
+                     pool_ms_per_step=pool["wall_s"] / pool["steps"])
+
+    # the 100k resident-checkpoint restore, bitwise
+    zero_launches()
+    rest = validate_longrun.restore_check()
+    ln = read_launches()
+    print(f"#   restore {rest['n']} on {rest['grid']}: bitwise "
+          f"{rest['ok']} at step {rest['step']}, rebins {rest['rebins']}, "
+          f"overflow {rest['overflow']}; launches K1 {ln['density']}, K2 "
+          f"{ln['forces_integrate']}, K3 {ln['reslot']}, K5 "
+          f"{ln['mono_step']} on {card}", flush=True)
+    check(rest["ok"], f"the 100k restore is not bitwise: {rest}")
+    check(ln["density"] == ln["forces_integrate"] == 3 * 500
+          and ln["mono_step"] == 0, f"the restore's step kernels: {ln}")
+    gc_collect()
+
+    # D = 8 slabs on the one card: the default (unfused plain stencils)
+    # and the fused step
+    for fused in (False, True):
+        zero_launches()
+        dry = dryrun_d8.dryrun(DRYRUN_N, DRYRUN_STEPS, DRYRUN_D, fused)
+        ln = read_launches()
+        dry.pop("state")
+        D, steps, rebins = DRYRUN_D, DRYRUN_STEPS, dry["rebins"]
+        print(f"#   dryrun D={D} {'fused' if fused else 'default'}: n "
+              f"{dry['n']}, slabs of {dry['nx_local']} columns "
+              f"{dry['slab_grid']}, {steps} steps in {dry['wall_s']:.2f} s, "
+              f"rebins {rebins}, alive {dry['alive']}, overflow "
+              f"{dry['overflow']}, dropped {dry['dropped']}, lost "
+              f"{dry['lost']}, identity {dry['identity_exact']}, finite "
+              f"{dry['finite']}, in box {dry['in_box']}, per slab "
+              f"{dry['per_device_alive']}; launches K1 {ln['density']}, K2 "
+              f"{ln['forces_integrate']} (lanes "
+              f"{ln['forces_integrate_lanes']}), K3 {ln['reslot']} (clip "
+              f"{ln['reslot_clip']}), K8 {ln['forces']} on {card}",
+              flush=True)
+        check(dry["ok"] and dry["lost"] == 0, f"the D={D} dry run: {dry}")
+        k12 = D * steps if fused else 0
+        check(ln["density"] == ln["forces_integrate"] == k12
+              and ln["forces_integrate_lanes"] == k12
+              and ln["reslot"] == ln["reslot_clip"] == D * (rebins - 1)
+              and ln["forces"] == 0 and ln["mono_step"] == 0,
+              f"the D={D} dry run's kernels: {ln}")
+        gc_collect()
+
+    # the mono A/B: K5 against K1 + K2 at four N, each arm twice in the
+    # order K5, K1 + K2, K1 + K2, K5 (the host's spread), the faster kept
+    ab = {}
+    for n in MONO_AB_N:
+        for mono in (True, False, False, True):
+            zero_launches()
+            r = bench_mono_ab.ab(n, mono)
+            ln = read_launches()
+            check(r["overflow"] == 0, f"mono A/B overflow: {r}")
+            check((ln["mono_step"] > 0) == mono
+                  and (ln["forces_integrate"] > 0) != mono,
+                  f"mono A/B arm {mono} at {n}: {ln}")
+            ab.setdefault((n, mono), []).append(r)
+    check(cuda_solver.MONO_MAX_BLOCKS == 12, "MONO_MAX_BLOCKS not restored")
+    ms = {k: min(r["per_step_ms"] for r in v) for k, v in ab.items()}
+    nb = {n: ab[(n, True)][0]["n_row_blocks"] for n in MONO_AB_N}
+    # the crossover: the fewest row blocks from which K5 is slower at every
+    # larger N measured
+    cross = None
+    for n in reversed(MONO_AB_N):
+        if ms[(n, True)] <= ms[(n, False)]:
+            break
+        cross = nb[n]
+    print(f"#   mono A/B (differential window, 300 warm-up, best of 3 of "
+          f"300 and 600; each arm twice, K5 / K1 + K2 / K1 + K2 / K5): "
+          + "; ".join(
+              f"n {ab[(n, True)][0]['n']} ({nb[n]} row blocks) K5 "
+              + "/".join(f"{r['per_step_ms']:.4f}" for r in ab[(n, True)])
+              + " vs K1 + K2 "
+              + "/".join(f"{r['per_step_ms']:.4f}" for r in ab[(n, False)])
+              + " ms/step" for n in MONO_AB_N)
+          + f"; crossover: K5 slower from {cross} row blocks on (None: "
+          f"K5 not slower at the largest N) against MONO_MAX_BLOCKS "
+          f"{cuda_solver.MONO_MAX_BLOCKS} on {card}", flush=True)
+    # the same A/B in device time, which the host's spread does not reach:
+    # K5 against K1 + K2 (profiler) on one Session's planes after the
+    # warm-up, as phase 8 times them on the --fps grids
+    dev_ms = {}
+    for n in MONO_AB_N:
+        sess = bench_mono_ab.session(n, False)
+        sess.run(WARM_STEPS)
+        s, g = sess.sim, sess.grid
+        margs = (s.xd, s.yd, s.vxd, s.vyd, s.ref_xd, s.ref_yd, sess.params,
+                 sess.cfg, g, s.occ)
+
+        def two():
+            rho = cuda_solver.density_cuda(s.xd, s.yd, sess.params, g, s.occ)
+            return cuda_solver.forces_integrate_cuda(
+                s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd,
+                sess.params, sess.cfg, g, s.occ)
+        dev_ms[n] = (kernel_ms(lambda: cuda_solver.mono_step_cuda(*margs),
+                               "mono_step_kernel", 100),
+                     sum(device_ms(two, ["density_kernel",
+                                         "forces_integrate_kernel"],
+                                   100).values()))
+        del s, sess, margs
+    dev_cross = None
+    for n in reversed(MONO_AB_N):
+        if dev_ms[n][0] <= dev_ms[n][1]:
+            break
+        dev_cross = nb[n]
+    print(f"#   mono A/B in device time (profiler, after {WARM_STEPS} "
+          f"steps): " + "; ".join(
+              f"{nb[n]} row blocks K5 {dev_ms[n][0]:.4f} vs K1 + K2 "
+              f"{dev_ms[n][1]:.4f} ms" for n in MONO_AB_N)
+          + f"; K5 slower from {dev_cross} row blocks on (None: not at "
+          f"the largest N) on {card}", flush=True)
+    for k in kernels:
+        if k["name"] == "mono_step":
+            k.update(ab_device_ms={nb[n]: dev_ms[n] for n in MONO_AB_N},
+                     ab_step_ms={nb[n]: (ms[(n, True)], ms[(n, False)])
+                                 for n in MONO_AB_N})
+    gc_collect()
+
+    # one card near its ceiling at the tool's default 96M
+    zero_launches()
+    sc = bench_scale.scale()
+    ln = read_launches()
+    print(f"#   bench_scale {sc['n']}: {sc['ms_per_step']:.3f} ms/step "
+          f"(inclusive best of 3 x 300) = {sc['value'] / 1e9:.3f}G "
+          f"particle-steps/s, init {sc['init_s']:.2f} s, rebins "
+          f"{sc['rebins']}, overflow {sc['overflow']} (the tool's own gate, "
+          f"overflow 0: {sc['ok']}), lost {sc['lost']}, alive "
+          f"{sc['alive']} + suspended {sc['suspended']}, finite "
+          f"{sc['finite']}, planar {sc['planar']}, refless {sc['refless']}, "
+          f"peak of the steps {sc['peak_plane_footprints']:.3f} "
+          f"plane-footprints; launches {ln} on {card}", flush=True)
+    # a 392-unit-deep column past 1,000 steps: the deep-scene rule (ROADMAP
+    # queue 3): no particle lost, every one resident or parked; the
+    # overflow, recoverable drops, is recorded
+    check(sc["finite"] and sc["lost"] == 0
+          and sc["alive"] + sc["suspended"] == sc["n"],
+          f"bench_scale lost particles: {sc}")
+    # the tool's own gate (the reference's: overflow 0 and finite) and the
+    # steps' peak against what the automatic postures budget this posture
+    # (verlet_solver.FOOTPRINTS): each held and recorded; a miss is a
+    # known failure (the overflow regime of the deep column, README; F5,
+    # ROADMAP queue 3), printed as one
+    check(sc["ok"] == (sc["overflow"] == 0 and sc["finite"]),
+          f"bench_scale's ok is not its gate: {sc}")
+    posture = ("default" if not sc["planar"]
+               else "ceiling" if sc["refless"] else "planar")
+    budget = vs.FOOTPRINTS[posture]
+    known = ([] if sc["ok"] else [
+        f"bench_scale's own gate fails: overflow {sc['overflow']} (all "
+        f"recovered: lost {sc['lost']}), the 96M deep column's overflow "
+        f"regime"]) + ([] if sc["peak_plane_footprints"] <= budget else [
+            f"F5: the {posture} posture's steps peak at "
+            f"{sc['peak_plane_footprints']:.3f} plane-footprints > "
+            f"FOOTPRINTS[{posture!r}] = {budget}"])
+    print(f"#   bench_scale against its gate and its budget: peak "
+          f"{sc['peak_plane_footprints']:.3f} vs FOOTPRINTS[{posture!r}] "
+          f"{budget}; known failures: {known or 'none'} on {card}",
+          flush=True)
+    check(ln["density"] == ln["forces_integrate"] == 4 * 300
+          and ln["reslot"] == sc["rebins"] - 1, f"bench_scale's kernels: {ln}")
+    gc_collect()
+
+    # the slab path at its default 1M, D = 1, then --frames
+    zero_launches()
+    shd = bench_sharded.bench(bench_sharded.parse_args(["--frames"]))
+    ln = read_launches()
+    print(f"#   bench_sharded D=1 {shd['n']}: {shd['ms_per_step']:.4f} "
+          f"ms/step (differential; inclusive "
+          f"{shd['inclusive_ms_per_step']:.4f}), alive {shd['alive']}, "
+          f"overflow {shd['overflow']}, dropped {shd['dropped']}, rebins "
+          f"{shd['rebins']}, identity {shd['identity_exact']}; --frames "
+          f"{shd['frame_ms']:.2f} ms/frame ({shd['frames_per_s']:.1f} "
+          f"frames/s) at {shd['frame_shape']}, overflow "
+          f"{shd['frames_overflow']} (recorded), lost "
+          f"{shd['frames_lost']}; launches {ln} on {card}", flush=True)
+    check(shd["ok"], f"bench_sharded: {shd}")
+    check(ln["forces_integrate_lanes"] > 0 and ln["field_raster"] > 0,
+          f"bench_sharded's kernels: {ln}")
+    gc_collect()
+
+    # cold starts at 1M, each phase a fresh process
+    aot = bench_aot.cold_starts()
+    print(f"#   bench_aot {aot['n']}: plain cold start "
+          f"{aot['trace_cold_start_s']:.2f} s, from the artifact "
+          f"{aot['aot_cold_start_s']:.2f} s (first ever "
+          f"{aot['aot_first_ever_s']:.2f}), artifact "
+          f"{aot['artifact_mb']:.2f} MiB, export {aot['export_s']:.2f} s, "
+          f"density sums equal {aot['probes_equal']} on {card}", flush=True)
+    check(aot["ok"], f"bench_aot: {aot}")
+    print(f"# phase 19: {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3333,6 +3692,13 @@ def main() -> None:
         _build.load()
         serving_and_tooling([], smi_line())
         return
+    if sys.argv[1:] == ["19"]:      # phase 19 alone: no result line
+        from bevy_gpu_fluid_tpu_torch.kernels import _build
+        _build.load()
+        kernels = []
+        reference_tools(kernels, smi_line())
+        print(json.dumps({"kernels": kernels}))
+        return
     kernels, card = paths_1m()
     gc_collect()
     ceiling_mechanisms_1m(kernels, card)
@@ -3346,6 +3712,8 @@ def main() -> None:
     sharded_ceiling(kernels, card)
     gc_collect()
     serving_and_tooling(kernels, card)
+    gc_collect()
+    reference_tools(kernels, card)
     gc_collect()
     footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))

@@ -501,6 +501,27 @@ def test_select_and_apply_kernels_bitwise_twins(rebin_planes, code_dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.int8])
+def test_apply_code_out_bitwise_fresh_on_card(rebin_planes, code_dtype):
+    """K7 writing into a given plane (``out=``) is bitwise its fresh-output
+    call over a garbage plane, float32 and int32 payloads; an ``out`` that
+    overlaps the payload is refused."""
+    planes, occ = rebin_planes
+    code, _ = reslot.select_cuda(planes[0], planes[1], GRID, occ,
+                                 code_dtype)
+    before = reslot.apply_code_cuda.launches_out
+    for plane, fill in zip(planes, (1e9, 1e9, 0.0, 0.0, -1)):
+        fresh = reslot.apply_code_cuda(plane, code, occ, GRID, fill)
+        out = torch.full_like(plane, 7)
+        got = reslot.apply_code_cuda(plane, code, occ, GRID, fill, out=out)
+        assert got is out and torch.equal(got.view(torch.int32),
+                                          fresh.view(torch.int32))
+    assert reslot.apply_code_cuda.launches_out == before + 5
+    with pytest.raises(ValueError):
+        reslot.apply_code_cuda(planes[0], code, occ, GRID, 1e9,
+                               out=planes[0])
+
+
 def test_planar_session_bitwise_fused_on_card(cuda):
     """Fused and planar Sessions over several rebins on the card: every
     DenseSim field equal; K6 once and K7 five times per planar rebin, K3

@@ -291,7 +291,14 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.examples.demo, "
             "bevy_gpu_fluid_tpu_torch.examples.spin, "
             "bevy_gpu_fluid_tpu_torch.examples.interactive, "
-            "bevy_gpu_fluid_tpu_torch.examples.sharded_demo; "
+            "bevy_gpu_fluid_tpu_torch.examples.sharded_demo, "
+            # the reference's chip tools
+            "bevy_gpu_fluid_tpu_torch.tools.validate_longrun, "
+            "bevy_gpu_fluid_tpu_torch.tools.dryrun_d8, "
+            "bevy_gpu_fluid_tpu_torch.tools.bench_mono_ab, "
+            "bevy_gpu_fluid_tpu_torch.tools.bench_scale, "
+            "bevy_gpu_fluid_tpu_torch.tools.bench_sharded, "
+            "bevy_gpu_fluid_tpu_torch.tools.bench_aot; "
             # the very-large-N slab postures, driven: they import lazily
             "import torch, bevy_gpu_fluid_tpu_torch as bt; "
             "torch.set_num_threads(1); "
@@ -356,12 +363,12 @@ def test_multi_step_matches_session():
     Session split across run() calls does."""
     state = bt.init_grid(12, 12, 0.04, "cpu")
     state = state.replace(vx=torch.full((state.n,), 1.5))
-    out, dropped, rebins = tvs.multi_step(state, PARAMS, CFG, GRID_T, 24)
+    out, diag, rebins = tvs.multi_step(state, PARAMS, CFG, GRID_T, 24)
     sess = tvs.Session(state, PARAMS, CFG, GRID_T, device="cpu")
     sess.run(10)
     sess.run(14)
     got = sess.state()
-    assert dropped == sess.overflow == 0
+    assert diag.overflow == sess.overflow == 0
     assert rebins == sess.sim.rebin_count >= 2
     assert out.step == got.step == 24
     for f in ("x", "y", "vx", "vy", "rho", "p"):

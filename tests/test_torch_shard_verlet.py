@@ -76,7 +76,8 @@ def _run_jax(spec_j, state_j, steps, **kw):
 def _run_port(spec_t, state_j, steps, **kw):
     mesh = SlabMesh(["cpu"] * spec_t.n_devices)
     steps_fn = tsv.make_sharded_verlet_step(
-        kw.pop("params", PARAMS), kw.pop("cfg", CFG), spec_t, mesh, **kw)
+        kw.pop("params", PARAMS), kw.pop("cfg", CFG), spec_t, mesh,
+        fused=True, **kw)
     sim = steps_fn.init(tsh.shard_state(convert.state_from(_np(state_j),
                                                            "cpu"),
                                         spec_t, mesh))
@@ -377,7 +378,7 @@ def test_recovery_with_a_spill_matches_jax():
     spec_t = convert.spec_from(spec_j)
     mesh = SlabMesh(["cpu"] * 2)
     steps_t = tsv.make_sharded_verlet_step(PARAMS, convert.cfg_from(cfg_j),
-                                           spec_t, mesh, n=n)
+                                           spec_t, mesh, n=n, fused=True)
     sim0 = steps_t.init(tsh.shard_state(convert.state_from(
         _np(state_j), "cpu"), spec_t, mesh))
     assert sim0.overflow == [1, 0] and sim0.suspended == 1

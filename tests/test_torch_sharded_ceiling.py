@@ -395,7 +395,8 @@ def test_owned_planar_rebin_with_recovery_bitwise(refless):
     sims = []
     for kw in (dict(planar=False), dict(planar=True, donate=True)):
         steps = tsv.make_sharded_verlet_step(PARAMS, cfg, spec, _mesh(),
-                                             n=state.n, refless=refless, **kw)
+                                             n=state.n, refless=refless,
+                                             fused=True, **kw)
         sim = steps.init(tsh.shard_state(state, spec, _mesh()))
         for _ in range(30):
             sim = steps.step(sim)
