@@ -206,19 +206,26 @@ inline unsigned tiles_for(int ny_pad, int nx_pad, int tb) {
       ((nx_pad + G::kCols - 1) / G::kCols));
 }
 
+// Tile b of the launch (row-block major, then tile row, then tile column):
+// a tiled kernel's block blockIdx.x; a persistent kernel's tile b.
 template <class G = StencilTile>
-__device__ __forceinline__ Tile tile_of(int nx_pad, int tb) {
+__device__ __forceinline__ Tile tile_at(int b, int nx_pad, int tb) {
   const int tiles_x = (nx_pad + G::kCols - 1) / G::kCols;
   const int per_rb = (tb + G::kRows - 1) / G::kRows;
-  const int ty = blockIdx.x / tiles_x;
+  const int ty = b / tiles_x;
   Tile t;
-  t.col0 = (blockIdx.x - ty * tiles_x) * G::kCols;
+  t.col0 = (b - ty * tiles_x) * G::kCols;
   t.cols = min(G::kCols, nx_pad - t.col0);
   t.rb = ty / per_rb;
   const int r_in = (ty - t.rb * per_rb) * G::kRows;
   t.row0 = t.rb * tb + r_in;
   t.rows = min(G::kRows, tb - r_in);
   return t;
+}
+
+template <class G = StencilTile>
+__device__ __forceinline__ Tile tile_of(int nx_pad, int tb) {
+  return tile_at<G>(blockIdx.x, nx_pad, tb);
 }
 
 // Offset of the tile's output slot (tr, s, tc) from the window's first row.

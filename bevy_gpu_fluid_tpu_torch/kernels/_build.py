@@ -14,6 +14,10 @@ The library goes to ``bevy_gpu_fluid_tpu_torch/_build/<source hash>/``, so
 an edit to any source builds anew and an unchanged tree reuses the last
 build.  It is loaded with ``ctypes``: every pointer and the stream are
 ``c_void_p``, every size ``c_int``, every physics constant ``c_float``.
+The kernels that stage asynchronously copy with ``cp.async``
+(``csrc/bgf_async.cuh``), an instruction that needs no descriptor: no
+kernel takes a TMA tensor map, so the library links no driver API (no
+``-lcuda``, no ``cudaGetDriverEntryPoint``).
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises if that is not 0.  The kernel
 wrappers share ``check_planes`` (device, dtype, shape and contiguity of
@@ -77,6 +81,15 @@ SIGNATURES = {
     "bgf_apply_code": [_P] * 4 + [_I] * 7 + [_P],
     # ny_pad, nx_pad, tb | stream: an empty kernel on K5's launch shape
     "bgf_mono_floor": [_I] * 3 + [_P],
+    # the kernel experiments (T1-T4): bgf_density's and bgf_forces's
+    # arguments on slot-major planes; K8's with a variant (and C1); K2's
+    # ref-based ones
+    "bgf_density_t": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
+    "bgf_forces_t": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
+    # x, y, vx, vy, rho, occ, ax, ay | ny_pad, cap, nx_pad, tb, nb, variant
+    # | h, m_half, spiky_c, visc_mc, c1, rho0, k | stream
+    "bgf_forces_variant": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P],
+    "bgf_forces_integrate_dbuf": [_P] * 13 + [_I] * 5 + [_F] * 11 + [_P],
     # cap, out int32[5] (no stream: a query, not a launch)
     "bgf_density_occupancy": [_I, _P],
     "bgf_forces_integrate_occupancy": [_I, _P],
@@ -85,6 +98,13 @@ SIGNATURES = {
     "bgf_mono_step_occupancy": [_I, _P],
     "bgf_field_occupancy": [_I, _P],
     "bgf_select_occupancy": [_I, _P],
+    "bgf_density_t_occupancy": [_I, _P],
+    "bgf_forces_t_occupancy": [_I, _P],
+    "bgf_forces_integrate_dbuf_occupancy": [_I, _P],
+    # cap, variant, out int32[5]
+    "bgf_forces_variant_occupancy": [_I, _I, _P],
+    # cap, out int32[1]: the persistent grid T1 launches
+    "bgf_forces_integrate_dbuf_grid": [_I, _P],
 }
 
 
@@ -161,15 +181,17 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
+def check_planes(grid, occ=None, dtypes=None, shape=None,
+                 **planes) -> torch.device:
     """Validate a wrapper's dense planes (contiguous ``grid.plane_shape``,
-    float32 except ``idx_d`` int32 and what ``dtypes`` allows per name, all
-    on one CPU or CUDA device) and the optional slot-loop bounds ``occ``
-    (int32 [3, n_row_blocks]).  Returns the device; raises ValueError on
-    anything a kernel does not take."""
+    or ``shape`` when given, float32 except ``idx_d`` int32 and what
+    ``dtypes`` allows per name, all on one CPU or CUDA device) and the
+    optional slot-loop bounds ``occ`` (int32 [3, n_row_blocks]).  Returns
+    the device; raises ValueError on anything a kernel does not take."""
     dtypes = dtypes or {}
+    shape = tuple(grid.plane_shape if shape is None else shape)
     want = {name: (dtypes.get(name, torch.int32 if name == "idx_d"
-                              else torch.float32), grid.plane_shape)
+                              else torch.float32), shape)
             for name in planes}
     if occ is not None:
         planes["occ"] = occ
@@ -189,15 +211,17 @@ def check_planes(grid, occ=None, dtypes=None, **planes) -> torch.device:
     return dev
 
 
-def occupancy(name: str, cap: int) -> dict:
+def occupancy(name: str, cap: int, *args: int) -> dict:
     """What the tiled kernel ``name`` ("density", "forces_integrate",
-    "forces_integrate_refless", "forces", "mono_step", "field" (K4's halo-tile kernel, P > 4) or
-    "select" (int32 codes)) takes per block at slot capacity ``cap``, from
-    the CUDA runtime: registers per thread, static and dynamic shared
-    memory bytes, the blocks per SM they allow and the local (spill) bytes
-    per thread."""
+    "forces_integrate_refless", "forces", "mono_step", "field" (K4's
+    halo-tile kernel, P > 4), "select" (int32 codes), or the experiments'
+    "density_t", "forces_t", "forces_integrate_dbuf" and "forces_variant"
+    (``args``: the variant's number)) takes per block at slot capacity
+    ``cap``, from the CUDA runtime: registers per thread, static and
+    dynamic shared memory bytes, the blocks per SM they allow and the local
+    (spill) bytes per thread."""
     out = (ctypes.c_int * 5)()
-    rc = getattr(load(), f"bgf_{name}_occupancy")(cap, out)
+    rc = getattr(load(), f"bgf_{name}_occupancy")(cap, *args, out)
     if rc != 0:
         raise RuntimeError(f"bgf_{name}_occupancy: CUDA error {rc}")
     return dict(zip(("registers", "static_smem", "dynamic_smem",

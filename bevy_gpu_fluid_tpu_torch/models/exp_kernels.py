@@ -1,0 +1,341 @@
+"""The reference's kernel experiments as hand-written CUDA kernels, with
+their plain PyTorch twins: design studies of K1, K2 and K8 that no
+production path runs (the tools ``bevy_gpu_fluid_tpu_torch/tools/exp_*.py``
+and ``chip_smoke.py`` drive them against their production counterparts).
+
+Port of the Pallas kernels of the repo's ``tools/exp_*.py``:
+
+* T1 ``forces_integrate_dbuf_cuda`` (``csrc/exp_dbuf.cu``) replaces
+  ``_dbuf_kernel`` / ``make_dbuf`` (tools/exp_dbuf.py:38, :169): K2's
+  ref-based function as a persistent kernel that copies the next tile's
+  window asynchronously while it computes the current one; bitwise K2;
+* T2 ``density_t_cuda`` (``csrc/exp_tlayout.cu``) replaces
+  ``_density_kernel_t`` / ``density_t`` (tools/exp_tlayout.py:37, :182):
+  K1 on SLOT-MAJOR planes ``[cap, ny_pad, nx_pad]``, taps in (kj, dx, dy)
+  order; bitwise K1 after ``movedim``;
+* T3 ``forces_t_cuda`` (``csrc/exp_tlayout.cu``) replaces
+  ``_forces_kernel_t`` / ``forces_t`` (tools/exp_tlayout.py:84, :158): K8
+  on slot-major planes, taps in (kj, dy, dx) order, so it rounds
+  differently from K8;
+* T4 ``forces_variant_cuda`` (``csrc/exp_forces.cu``) replaces
+  ``_forces_kernel_v`` / ``make_forces`` (tools/exp_forces.py:47, :235):
+  K8 in the five arithmetic variants of ``VARIANTS`` (v0 is K8's own
+  arithmetic and bitwise K8; v0nr trades the rsqrt for ``r^2 + EPS``,
+  wrong physics that prices the rsqrt; v1 folds the constants; v2 also
+  factors v_i out of the pair loop; v3 is v2 with the slot loop unrolled
+  by two, bitwise v2).
+
+The slot-major planes hold the dense planes' cells, ghost blocks and FAR
+sentinel with the slot axis first (``to_slot_major``); their slot-loop
+bounds are the dense planes' ``block_kmax3`` (``block_kmax3_t``).  As the
+production wrappers, each wrapper computes with its twin on a CPU tensor
+and launches its kernel (counting the launch) or raises on a CUDA one.
+The twins repeat the TPU kernels' float operations in their order; the
+kernels differ from them by FMA contraction only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.params import FluidParams, GridSpec2D, IntegrateConfig
+from ..kernels import _build
+from ..ops.reslot import block_kmax3, row_kmax, taps
+from . import cuda_solver
+from .cuda_solver import EPS2, _density_consts, _eos, _force_sum, \
+    _forces_consts, density_sum
+
+VARIANTS = ("v0", "v0nr", "v1", "v2", "v3")
+EPS_NR = np.float32(1e-6)   # v0nr's r^2 + EPS in place of the rsqrt
+
+
+def to_slot_major(plane: torch.Tensor) -> torch.Tensor:
+    """A dense plane [ny_pad, cap, nx_pad] as a new slot-major one."""
+    return plane.movedim(1, 0).contiguous()
+
+
+def from_slot_major(plane: torch.Tensor) -> torch.Tensor:
+    """A slot-major plane [cap, ny_pad, nx_pad] as a new dense one."""
+    return plane.movedim(0, 1).contiguous()
+
+
+def slot_major_shape(grid: GridSpec2D) -> tuple:
+    return (grid.cap, grid.ny_pad, grid.nx_pad)
+
+
+def block_kmax3_t(xt: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
+    """``block_kmax3`` of a slot-major x plane (the TPU tool's
+    ``block_kmax3(moveaxis(xt, 0, 1))``)."""
+    return block_kmax3(xt.movedim(0, 1), grid)
+
+
+def _taps_t(planes, kj: int, order: str):
+    """Neighbour views of slot ``kj`` of slot-major planes, [1, ny_pad,
+    nx_pad] each, rows and columns wrapping: in (dx, dy) order for
+    ``order="dxdy"`` (K1's), in (dy, dx) order for "dydx" (the TPU forces
+    kernel's)."""
+    slot = [p[kj:kj + 1] for p in planes]
+    if order == "dxdy":
+        for dx in (-1, 0, 1):
+            rolled = [torch.roll(s, -dx, 2) for s in slot]
+            for dy in (-1, 0, 1):
+                yield [torch.roll(r, -dy, 1) for r in rolled]
+    else:
+        for dy in (-1, 0, 1):
+            shifted = [torch.roll(s, -dy, 1) for s in slot]
+            for dx in (-1, 0, 1):
+                yield [torch.roll(r, -dx, 2) for r in shifted]
+
+
+def _row_bound_t(occ, grid: GridSpec2D) -> torch.Tensor:
+    """The per-row slot bound [1, ny_pad, 1] of slot-major planes."""
+    return row_kmax(occ, grid).view(1, grid.ny_pad, 1)
+
+
+# ---------------------------------------------------------------------------
+# T1: K2's ref-based step, persistent, staging ahead
+# ---------------------------------------------------------------------------
+
+def forces_integrate_dbuf_torch(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
+                                params: FluidParams, cfg: IntegrateConfig,
+                                grid: GridSpec2D, occ):
+    """Plain PyTorch twin of T1: K2's ref-based function
+    (``cuda_solver.forces_integrate_torch``).  Returns (xd', yd', vxd',
+    vyd', disp2)."""
+    return cuda_solver.forces_integrate_torch(xd, yd, vxd, vyd, rho_d,
+                                              ref_xd, ref_yd, params, cfg,
+                                              grid, occ)
+
+
+def forces_integrate_dbuf_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
+                               params: FluidParams, cfg: IntegrateConfig,
+                               grid: GridSpec2D, occ):
+    """K2's ref-based forces + integrate + bounce + displacement max as the
+    persistent kernel T1 (``csrc/exp_dbuf.cu``); the contract of
+    ``cuda_solver.forces_integrate_cuda``'s ref-based form (every lane in
+    the max).  ``launches`` counts the launches."""
+    dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
+                              rho_d=rho_d, ref_xd=ref_xd, ref_yd=ref_yd)
+    if dev.type == "cpu":
+        return forces_integrate_dbuf_torch(xd, yd, vxd, vyd, rho_d, ref_xd,
+                                           ref_yd, params, cfg, grid, occ)
+    c = _forces_consts(params)
+    outs = [torch.empty_like(xd) for _ in range(4)]
+    disp = torch.empty(1, dtype=torch.float32, device=dev)
+    _build.launch(
+        "bgf_forces_integrate_dbuf", dev, xd.data_ptr(), yd.data_ptr(),
+        vxd.data_ptr(), vyd.data_ptr(), rho_d.data_ptr(), ref_xd.data_ptr(),
+        ref_yd.data_ptr(), occ.data_ptr(),
+        *(o.data_ptr() for o in outs), disp.data_ptr(), grid.ny_pad,
+        grid.cap, grid.nx_pad, grid.row_block, grid.n_row_blocks,
+        *(float(c[k]) for k in ("h", "m_half", "spiky_c", "visc_mc")),
+        float(params.rho_0), float(params.k), float(cfg.dt),
+        float(cfg.x_min), float(cfg.x_max), float(cfg.bounce),
+        float(cfg.floor_y))
+    forces_integrate_dbuf_cuda.launches += 1
+    return (*outs, disp[0])
+
+
+forces_integrate_dbuf_cuda.launches = 0
+
+
+def dbuf_grid(cap: int) -> int:
+    """The blocks T1 launches at slot capacity ``cap`` on the current
+    device: blocks per SM x SMs (fewer only on a grid of fewer tiles)."""
+    import ctypes
+    out = (ctypes.c_int * 1)()
+    rc = _build.load().bgf_forces_integrate_dbuf_grid(cap, out)
+    if rc != 0:
+        raise RuntimeError(f"bgf_forces_integrate_dbuf_grid: CUDA error {rc}")
+    return int(out[0])
+
+
+# ---------------------------------------------------------------------------
+# T2: density on slot-major planes
+# ---------------------------------------------------------------------------
+
+def density_t_torch(xt, yt, params: FluidParams, grid: GridSpec2D,
+                    occ) -> torch.Tensor:
+    """Plain PyTorch twin of T2: K1's sum on slot-major planes, (kj, dx,
+    dy) order; ghost blocks 0."""
+    h2, coeff = _density_consts(params)
+    kmax = _row_bound_t(occ, grid)
+    rho = density_sum(xt, yt, h2, kmax,
+                      lambda kj: _taps_t((xt, yt), kj, "dxdy"),
+                      int(kmax.max()))
+    return rho * float(coeff)
+
+
+def density_t_cuda(xt, yt, params: FluidParams, grid: GridSpec2D,
+                   occ) -> torch.Tensor:
+    """Density over slot-major planes ``[cap, ny_pad, nx_pad]`` (kernel
+    T2); ``occ`` is ``block_kmax3_t(xt, grid)``.  Returns a new slot-major
+    rho plane with ghost blocks 0.  ``launches`` counts the launches."""
+    dev = _build.check_planes(grid, occ, shape=slot_major_shape(grid),
+                              xt=xt, yt=yt)
+    if dev.type == "cpu":
+        return density_t_torch(xt, yt, params, grid, occ)
+    h2, coeff = _density_consts(params)
+    rho = torch.empty_like(xt)
+    _build.launch("bgf_density_t", dev, xt.data_ptr(), yt.data_ptr(),
+                  occ.data_ptr(), rho.data_ptr(), grid.ny_pad, grid.cap,
+                  grid.nx_pad, grid.row_block, grid.n_row_blocks, float(h2),
+                  float(coeff))
+    density_t_cuda.launches += 1
+    return rho
+
+
+density_t_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# T3: forces on slot-major planes
+# ---------------------------------------------------------------------------
+
+def forces_t_torch(xt, yt, vxt, vyt, rhot, params: FluidParams,
+                   grid: GridSpec2D, occ):
+    """Plain PyTorch twin of T3: K8's pair sum on slot-major planes, taps
+    in (kj, dy, dx) order.  Returns (ax_t, ay_t); ghost blocks 0."""
+    p, ir = _eos(rhot, params)
+    kmax = _row_bound_t(occ, grid)
+    return _force_sum(xt, yt, vxt, vyt, p, params, kmax,
+                      lambda kj: _taps_t((xt, yt, vxt, vyt, p, ir), kj,
+                                         "dydx"),
+                      int(kmax.max()))
+
+
+def forces_t_cuda(xt, yt, vxt, vyt, rhot, params: FluidParams,
+                  grid: GridSpec2D, occ):
+    """Pressure + viscosity accelerations over slot-major planes (kernel
+    T3); ``occ`` is ``block_kmax3_t(xt, grid)``.  Returns new slot-major
+    (ax_t, ay_t), dead slots and ghost blocks +0.  ``launches`` counts the
+    launches."""
+    dev = _build.check_planes(grid, occ, shape=slot_major_shape(grid),
+                              xt=xt, yt=yt, vxt=vxt, vyt=vyt, rhot=rhot)
+    if dev.type == "cpu":
+        return forces_t_torch(xt, yt, vxt, vyt, rhot, params, grid, occ)
+    c = _forces_consts(params)
+    ax = torch.empty_like(xt)
+    ay = torch.empty_like(xt)
+    _build.launch(
+        "bgf_forces_t", dev, xt.data_ptr(), yt.data_ptr(), vxt.data_ptr(),
+        vyt.data_ptr(), rhot.data_ptr(), occ.data_ptr(), ax.data_ptr(),
+        ay.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad, grid.row_block,
+        grid.n_row_blocks,
+        *(float(c[k]) for k in ("h", "m_half", "spiky_c", "visc_mc")),
+        float(params.rho_0), float(params.k))
+    forces_t_cuda.launches += 1
+    return ax, ay
+
+
+forces_t_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# T4: the forces arithmetic variants
+# ---------------------------------------------------------------------------
+
+def _variant_sum(xi, yi, vxi, vyi, p_i, params: FluidParams, bound, tap_fn,
+                 n_kj: int, variant: str):
+    """(ax, ay) of variant v0nr, v1, v2 or v3 in (kj, dx, dy) order over kj
+    < bound (v3: the bound rounded up to even; a slot past the plane's last
+    is FAR there and is skipped, which adds the same exact 0)."""
+    c = _forces_consts(params)
+    h, m_half, spiky_c, visc_mc = (float(c[k]) for k in
+                                   ("h", "m_half", "spiky_c", "visc_mc"))
+    c1 = float(c["m_half"] * c["spiky_c"])   # (-m/2) spiky_c in float32
+    if variant == "v3":
+        bound = (bound + 1) // 2 * 2
+        n_kj = (n_kj + 1) // 2 * 2
+    ax = torch.zeros_like(xi)
+    ay = torch.zeros_like(xi)
+    sv = torch.zeros_like(xi)
+    for kj in range(min(n_kj, xi.shape[1])):
+        on = kj < bound
+        for rx, ry, rvx, rvy, rp, ri in tap_fn(kj):
+            ddx = xi - rx
+            ddy = yi - ry
+            r2 = ddx * ddx + ddy * ddy
+            if variant == "v0nr":
+                inv_r = r2 + float(EPS_NR)
+                hr = torch.clamp_min(h - r2 * inv_r, 0.0)
+                fac_p = m_half * (p_i + rp) * ri * (spiky_c * hr * hr * inv_r)
+                fac_v = visc_mc * ri * hr
+                dax = fac_p * ddx + fac_v * (rvx - vxi)
+                day = fac_p * ddy + fac_v * (rvy - vyi)
+            else:
+                inv_r = torch.rsqrt(r2 + float(EPS2))
+                hr = torch.clamp_min(h - r2 * inv_r, 0.0)
+                u = (p_i + rp) * ri
+                fac_p = (c1 * u) * (hr * hr * inv_r)
+                fac_v = (visc_mc * hr) * ri
+                if variant == "v1":
+                    dax = fac_p * ddx + fac_v * (rvx - vxi)
+                    day = fac_p * ddy + fac_v * (rvy - vyi)
+                else:
+                    dax = fac_p * ddx + fac_v * rvx
+                    day = fac_p * ddy + fac_v * rvy
+                    sv = torch.where(on, sv + fac_v, sv)
+            ax = torch.where(on, ax + dax, ax)
+            ay = torch.where(on, ay + day, ay)
+    if variant in ("v2", "v3"):
+        ax = ax - vxi * sv
+        ay = ay - vyi * sv
+    return ax, ay
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
+
+
+def forces_variant_torch(xd, yd, vxd, vyd, rho_d, params: FluidParams,
+                         grid: GridSpec2D, occ, variant: str):
+    """Plain PyTorch twin of T4's ``variant``: v0 is K8's twin
+    (``cuda_solver.forces_torch``), the others their TPU variant's float
+    operations in order.  Returns (ax_d, ay_d); ghost blocks 0."""
+    _check_variant(variant)
+    if variant == "v0":
+        return cuda_solver.forces_torch(xd, yd, vxd, vyd, rho_d, params,
+                                        grid, occ)
+    p, ir = _eos(rho_d, params)
+    kmax = row_kmax(occ, grid)
+    return _variant_sum(xd, yd, vxd, vyd, p, params, kmax,
+                        lambda kj: taps((xd, yd, vxd, vyd, p, ir), kj),
+                        int(kmax.max()), variant)
+
+
+def forces_variant_cuda(xd, yd, vxd, vyd, rho_d, params: FluidParams,
+                        grid: GridSpec2D, occ, variant: str):
+    """K8's accelerations in arithmetic variant ``variant`` (kernel T4, one
+    of ``VARIANTS``); K8's contract.  ``launches`` counts every launch,
+    ``launches_<variant>`` each variant's."""
+    _check_variant(variant)
+    dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
+                              rho_d=rho_d)
+    if dev.type == "cpu":
+        return forces_variant_torch(xd, yd, vxd, vyd, rho_d, params, grid,
+                                    occ, variant)
+    c = _forces_consts(params)
+    ax = torch.empty_like(xd)
+    ay = torch.empty_like(xd)
+    _build.launch(
+        "bgf_forces_variant", dev, xd.data_ptr(), yd.data_ptr(),
+        vxd.data_ptr(), vyd.data_ptr(), rho_d.data_ptr(), occ.data_ptr(),
+        ax.data_ptr(), ay.data_ptr(), grid.ny_pad, grid.cap, grid.nx_pad,
+        grid.row_block, grid.n_row_blocks, VARIANTS.index(variant),
+        *(float(c[k]) for k in ("h", "m_half", "spiky_c", "visc_mc")),
+        float(c["m_half"] * c["spiky_c"]), float(params.rho_0),
+        float(params.k))
+    forces_variant_cuda.launches += 1
+    name = f"launches_{variant}"
+    setattr(forces_variant_cuda, name,
+            getattr(forces_variant_cuda, name) + 1)
+    return ax, ay
+
+
+forces_variant_cuda.launches = 0
+for _v in VARIANTS:
+    setattr(forces_variant_cuda, f"launches_{_v}", 0)
+del _v

@@ -80,14 +80,16 @@ SPILL_CAP = 256  # default spill-buffer entries (recovery pool size)
 _WIDE_NX_PAD = 6144
 
 # Peak device memory of each posture in PLANE-FOOTPRINTS (torch's peak
-# allocated bytes over one dense plane's bytes), the larger of one step and
-# one step that rebins with recovery armed, measured by chip_smoke.py phase
-# 14 on a 16M-particle scene on an NVIDIA H100 80GB HBM3 (700 W power
-# limit).  The automatic postures below compare them, times a plane's
-# bytes, with the card's memory.
+# allocated bytes over one dense plane's bytes), the largest of one step,
+# one step that rebins with recovery armed and, for the default posture,
+# one whose rebin collects drops, measured by chip_smoke.py phase 14 on a
+# 16M-particle scene on an NVIDIA H100 80GB HBM3 (700 W power limit).  The
+# automatic postures below compare them, times a plane's bytes, with the
+# card's memory.
 FOOTPRINTS = {
     "default": 15.375,           # fused K1 + K2 + K3, ref-based trigger:
-                                 # the fused rebin binds (the step 13)
+                                 # the fused rebin binds, collecting drops
+                                 # or not (the step 13)
     "planar": 13.0,              # + the planar rebin: the step binds
     "ceiling": 10.0,             # refless + planar + owned planes
                                  # (donate: K1 into the dead rho)
@@ -335,13 +337,18 @@ _FILLS = reslot_ops.PLANE_FILLS   # empty x, y, vx, vy, idx slots
 def _found_in_window(pidx_d: torch.Tensor, idx_d: torch.Tensor):
     """Per pre-rebin slot: is its particle index present in the 3x3 cell
     window of its slot in the post-rebin idx plane?  (The fused rebin's
-    drop test: a live pre-rebin slot not found was dropped.)"""
-    R, _, C = pidx_d.shape
+    drop test: a live pre-rebin slot not found was dropped.)  It compares
+    one slot layer of one window cell at a time, so its transient is one
+    bool plane beside the rebin's old and new planes, within
+    ``FOOTPRINTS["default"]``; all cap layers at once would hold cap bool
+    planes, two plane footprints at cap 8."""
+    R, cap, C = pidx_d.shape
     padded = F.pad(idx_d, (1, 1, 0, 0, 1, 1), value=-1)
     found = torch.zeros(pidx_d.shape, dtype=torch.bool, device=idx_d.device)
     for s in range(9):
         win = padded[s // 3:s // 3 + R, :, s % 3:s % 3 + C]
-        found |= (pidx_d[:, :, None, :] == win[:, None, :, :]).any(dim=2)
+        for k in range(cap):
+            found |= pidx_d == win[:, k:k + 1, :]
     return found
 
 

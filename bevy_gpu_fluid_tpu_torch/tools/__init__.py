@@ -5,12 +5,15 @@ card: ``python -m bevy_gpu_fluid_tpu_torch.tools.<name>``.
 restore), ``dryrun_d8`` (D = 8 slabs at 102,400 particles),
 ``bench_mono_ab`` (the mono step K5 against K1 + K2), ``bench_scale`` (one
 card near its memory ceiling), ``bench_sharded`` (the slab path) and
-``bench_aot`` (cold starts with and without an exported artifact).  Each
+``bench_aot`` (cold starts with and without an exported artifact); and the
+reference's kernel experiments against their production counterparts,
+``exp_forces`` (K8's arithmetic variants), ``exp_tlayout`` (K1 and K8 on
+slot-major planes) and ``exp_dbuf`` (K2 staged ahead, persistent).  Each
 runs on the CUDA card unless given ``--cpu`` (``device="cpu"`` for its
 functions, which run the kernels' PyTorch twins), and raises rather than
 fall back to the CPU when no card is found.  Each ``main(argv)`` returns 0
-when every gate holds, else 1, and prints the reference tool's JSON line
-under its metric names.
+when every gate holds, else 1, and prints the reference tool's lines (its
+JSON line under its metric names, where it has one).
 """
 
 from __future__ import annotations
@@ -68,6 +71,46 @@ def dam_break(n: int, device, skin: float = 1.5,
                  extent)
 
 
+def developed(n: int, device, skin: float = 1.75, steps: int = 300):
+    """The kernel experiments' scene: the dam break of ~``n`` particles
+    (cells ``skin`` x h) after ``steps`` Session steps, so that the slot
+    occupancy is the flow's.  Returns (sim, scene, rho0): the DenseSim, the
+    Scene and K1's density of its planes."""
+    from ..models import cuda_solver, verlet_solver
+    sc = dam_break(n, device, skin)
+    sess = verlet_solver.Session(sc.state, sc.params, sc.cfg, sc.grid,
+                                 device=device)
+    sess.run(steps)
+    sim = sess.sim
+    rho0 = cuda_solver.density_cuda(sim.xd, sim.yd, sc.params, sc.grid,
+                                    sim.occ)
+    return sim, sc, rho0
+
+
+def timed_ms(fn, iters: int, device) -> float:
+    """Milliseconds per call of ``fn`` over ``iters`` back-to-back calls,
+    after one warm-up call: CUDA events on the card, the host clock on the
+    CPU."""
+    import time
+
+    import torch
+    fn()
+    if torch.device(device).type == "cuda":
+        sync(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def slab_spec(n: int, extent: float, skin: float, devices: int,
               capacity: int):
     """The dam break's slab spec: ``devices`` slabs of cells ``skin`` x h,
@@ -97,8 +140,11 @@ def identity(idx_d: list, n: int, device) -> tuple[bool, int]:
 def counters() -> dict:
     """Every kernel wrapper's launch counter (it counts CUDA launches
     only), by kernel: (wrapper, counter attribute)."""
-    from ..models import cuda_solver
+    from ..models import cuda_solver, exp_kernels
     from ..ops import reslot
+    variants = {f"forces_variant_{v}": (exp_kernels.forces_variant_cuda,
+                                        f"launches_{v}")
+                for v in exp_kernels.VARIANTS}
     return {"density": (cuda_solver.density_cuda, "launches"),
             "forces_integrate": (cuda_solver.forces_integrate_cuda,
                                  "launches"),
@@ -106,7 +152,12 @@ def counters() -> dict:
             "forces": (cuda_solver.forces_cuda, "launches"),
             "reslot": (reslot.reslot_cuda, "launches"),
             "select": (reslot.select_cuda, "launches"),
-            "apply_code": (reslot.apply_code_cuda, "launches")}
+            "apply_code": (reslot.apply_code_cuda, "launches"),
+            "forces_integrate_dbuf": (exp_kernels.forces_integrate_dbuf_cuda,
+                                      "launches"),
+            "density_t": (exp_kernels.density_t_cuda, "launches"),
+            "forces_t": (exp_kernels.forces_t_cuda, "launches"),
+            **variants}
 
 
 def launch_counts() -> dict:

@@ -124,7 +124,14 @@ with the validator — then checks them:
     K5 never, refless K2 and K1 once per step, its peak memory against the
     card's; a profiled step breakdown, one rebin timed, the recovery
     collect's peak on the ceiling planes; K2 refless and K1 ``out=`` (into
-    the dead rho) timed and bounded on the ceiling planes.
+    the dead rho) timed and bounded on the ceiling planes.  The default
+    posture's probe also takes a rebin that collects drops (the particles
+    of a 3 x 3 block of cells piled into its centre cell): the peak of
+    each transient of its recovery apart (K3, the drop test and its form
+    before F5's repair, the collect, the admit) and of the Session's
+    collecting rebin, which the posture's peak, held within
+    ``FOOTPRINTS["default"]``, includes.  ``python3 chip_smoke.py 14``
+    runs phase 14 alone and prints no result line.
 
 17. the sharded very-large-N postures (run after 16, before 14): (a) on
     slab 1 of a refless D = 2 session's 1M planes, K2 refless with the
@@ -204,13 +211,30 @@ with the validator — then checks them:
     at 5,041, 10,000, 40,000 and 100,000 particles (K5 against K1 + K2 in
     the differential window; the crossover in row blocks printed);
     ``bench_scale`` at 96M (held to the deep-scene rule: nothing lost,
-    every particle resident or parked, finite; the tool's own gate, the
-    reference's overflow 0, and the steps' peak against the posture's
-    ``FOOTPRINTS`` budget are recorded, and a miss of either is printed
-    as a known failure), ``bench_sharded`` at 1M D = 1 and its
+    every particle resident or parked, finite; the steps' peak, collecting
+    rebins included, within the posture's ``FOOTPRINTS`` budget; the
+    tool's own gate, the reference's overflow 0, is recorded, and a miss
+    is printed as a known failure), ``bench_sharded`` at 1M D = 1 and its
     ``--frames``, and ``bench_aot`` at 1M (each phase a fresh process; the
     two cold starts' density sums equal); the phase's wall time.  ``python3
     chip_smoke.py 19`` runs phase 19 alone and prints no result line.
+20. the reference's kernel experiments (run after 19, before 14): the
+    tools ``exp_forces``, ``exp_tlayout`` and ``exp_dbuf`` through their
+    ``main`` at 1M, their reference size, and at bench_scale's 96M, the
+    launch counters zeroed before the three and read after (each of T1-T4
+    launched); then each kernel against its production counterpart on the
+    tools' planes (T1 bitwise K2, planes and displacement max; T2 bitwise
+    K1 after ``movedim``; T4's v0 bitwise K8 and v3 bitwise v2; T3 and
+    T4's v1 and v2 within 1e-5 of max |a| of K8) and, at 1M, against its
+    twin at its counterpart's card gate; timed beside its counterpart (at
+    1M by the profiler, at 96M by CUDA events), with its bound (T1 K2's
+    bytes and operations, T2 K1's, T3 and T4 K8's, v0nr one operation
+    fewer a tap), registers, shared memory and blocks per SM (T1's
+    persistent grid too): the kernel table's ``forces_integrate_dbuf``,
+    ``density_t``, ``forces_t`` and ``forces_variant_*`` rows, their 96M
+    numbers under ``*_96m`` keys.
+    ``python3 chip_smoke.py 20`` runs phase 20 alone and prints no result
+    line.
 
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -2642,6 +2666,82 @@ def sharded_ceiling(kernels: list, card: str) -> None:
     del sess
 
 
+def found_in_window_dense(pidx_d, idx_d):
+    """The fused rebin's drop test as it was before F5's repair: each slot
+    against all cap slots of a window cell at once, a [R, cap, cap, C]
+    bool transient."""
+    import torch.nn.functional as F
+    R, _, C = pidx_d.shape
+    padded = F.pad(idx_d, (1, 1, 0, 0, 1, 1), value=-1)
+    found = torch.zeros(pidx_d.shape, dtype=torch.bool, device=idx_d.device)
+    for s in range(9):
+        win = padded[s // 3:s // 3 + R, :, s % 3:s % 3 + C]
+        found |= (pidx_d[:, :, None, :] == win[:, None, :, :]).any(dim=2)
+    return found
+
+
+def collecting_rebin(sess, base: int) -> dict:
+    """F5: the default posture's rebin when it collects drops.  Piles the
+    live particles of a 3 x 3 block of cells inside the fluid into its
+    centre cell (~4 a cell at cap 8: ~28 drops), then measures, in bytes
+    over ``base``, the peak of each transient of the fused rebin's recovery
+    on top of the resident planes: K3, the drop test (``_found_in_window``,
+    and its form before the repair), the collect and the admit; then the
+    Session's own rebin (the bins' age forces it) and one step.  Returns
+    the peaks and the drops."""
+    from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
+    from bevy_gpu_fluid_tpu_torch.ops import reslot
+    s, grid, params, cfg = sess.sim, sess.grid, sess.params, sess.cfg
+    r, c = grid.row0 + grid.ny // 4, grid.nx // 4 + 1
+    block = (slice(r - 1, r + 2), slice(None), slice(c - 1, c + 2))
+    live = s.xd[block] < 5e8
+    k = int(live.sum())
+    spread = torch.linspace(-0.3, 0.3, k, device=s.xd.device) * float(
+        grid.cell_size)
+    s.xd[block][live] = float(grid.origin_x) + (
+        c - 0.5) * float(grid.cell_size) + spread
+    s.yd[block][live] = float(grid.origin_y) + (
+        r - grid.row0 + 0.5) * float(grid.cell_size) + spread.flip(0)
+    s.vxd[block][live] = 0.0
+    s.vyd[block][live] = 0.0
+    out = {}
+
+    def peak(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = torch.cuda.max_memory_allocated() - base
+        return res
+
+    old = (s.xd, s.yd, s.vxd, s.vyd, s.idx_d)
+    *planes, cnt = peak("collect_reslot",
+                        lambda: reslot.reslot_cuda(*old, grid))
+    found = peak("collect_found",
+                 lambda: vs._found_in_window(s.idx_d, planes[4]))
+    found0 = peak("collect_found_before",
+                  lambda: found_in_window_dense(s.idx_d, planes[4]))
+    check(torch.equal(found, found0), "the drop test changed its answer")
+    dropped = (s.idx_d >= 0) & ~found
+    drops = int(dropped.sum())
+    del found, found0
+    spill = peak("collect_spill", lambda: vs._spill_collect(
+        dropped, old, (s.sx, s.sy, s.svx, s.svy, s.sidx)))
+    del dropped
+    q = vs._skin(params, grid) / cfg.dt
+    peak("collect_admit", lambda: vs._spill_admit(
+        *planes, cnt, *spill, s.readmitted, grid=grid, vmax2=q * q))
+    del planes, cnt, spill, old, s
+    over0 = sess.sim.overflow
+    sess.sim.age = 1 << 30        # the bins aged out: the next step rebins
+    peak("rebin_collect", lambda: sess.run(1))
+    check(sess.sim.overflow - over0 == drops > 0,
+          f"the collecting rebin: {drops} drops, overflow "
+          f"{over0} -> {sess.sim.overflow}")
+    out["drops"] = drops
+    return out
+
+
 def footprints_and_ceiling(kernels: list, card: str) -> None:
     """Phase 14: the postures' plane-footprints on a 16M scene, then the
     ceiling run with every posture left to its default.  Runs last."""
@@ -2699,6 +2799,9 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
         torch.cuda.synchronize()
         f["rebin"] = torch.cuda.max_memory_allocated() - base
         check(sess.sim.rebin_count == r0 + 1, f"{name}: no rebin")
+        if name == "default":
+            f.update(collecting_rebin(sess, base))
+            drops = f.pop("drops")
         if name == "ceiling":
             # the planar rebin's recovery collect, which runs only when a
             # particle lost its slot: select, the drops read off the code,
@@ -2730,7 +2833,8 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
                                          - base)
             del s, rho, ax, ay, res
         fp[name] = {k: v / plane for k, v in f.items()}
-        fp[name]["peak"] = max(fp[name]["step"], fp[name]["rebin"])
+        fp[name]["peak"] = max(fp[name]["step"], fp[name]["rebin"],
+                               fp[name].get("rebin_collect", 0.0))
         del sess
     reserve = vs.RESERVE_BYTES
     cap = {k: capacity(v["peak"], total, reserve) for k, v in fp.items()}
@@ -2746,6 +2850,21 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
     print("#   footprints " + json.dumps({k: round(v["peak"], 3)
                                            for k, v in fp.items()}),
           flush=True)
+    # F5: the default posture's budget holds a rebin that collects drops
+    d = fp["default"]
+    print(f"#   F5: the default posture's rebin collecting {drops} drops, "
+          f"peak per transient over the resident planes (plane-"
+          f"footprints): K3 {d['collect_reslot']:.3f}, the drop test "
+          f"{d['collect_found']:.3f} (before the repair "
+          f"{d['collect_found_before']:.3f}), the collect "
+          f"{d['collect_spill']:.3f}, the admit {d['collect_admit']:.3f}; "
+          f"the Session's collecting rebin and step "
+          f"{d['rebin_collect']:.3f}; peak {d['peak']:.3f} against "
+          f"FOOTPRINTS['default'] {vs.FOOTPRINTS['default']} on {card}",
+          flush=True)
+    check(round(d["peak"], 3) <= vs.FOOTPRINTS["default"],
+          f"the default posture peaks at {d['peak']:.3f} plane-footprints "
+          f"> FOOTPRINTS['default'] {vs.FOOTPRINTS['default']}")
 
     # the ceiling run: an N that neither the default posture nor the
     # ref-based planar one fits, at least 5% below the capacity of the
@@ -2822,8 +2941,9 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
           and launches["density"] == CEILING_STEPS,
           f"refless K2 / K1 launches {launches}")
     check(peak < total, f"peak {peak} over the card's {total}")
-    row = next(k for k in kernels if k["name"] == "forces_integrate_refless")
-    row["launches"] = launches["forces_integrate_refless"]
+    for row in kernels:      # the row phase 15 made (absent when run alone)
+        if row["name"] == "forces_integrate_refless":
+            row["launches"] = launches["forces_integrate_refless"]
 
     # where a ceiling step goes: K1, K2 refless and one rebin by CUDA
     # events against the timed ms/step; torch.profiler's view beside them
@@ -2917,12 +3037,13 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
                      need_taps * DENSITY_OPS)
     check(launches["density_out_slab"] == CEILING_STEPS,
           f"K1 into the dead rho on the ceiling path: {launches}")
-    next(k for k in kernels if k["name"] == "density").update(
-        ceiling_out_ms=k1c_ms, ceiling_out_ms_events=k1_ms,
-        ceiling_out_launches=launches["density_out_slab"],
-        ceiling_bound_ms=k1_bound["bound_ms"],
-        ceiling_bound_by=k1_bound["bound_by"],
-        ceiling_shape=list(grid.plane_shape))
+    for row in kernels:      # phase 3's K1 row (absent when run alone)
+        if row["name"] == "density":
+            row.update(ceiling_out_ms=k1c_ms, ceiling_out_ms_events=k1_ms,
+                       ceiling_out_launches=launches["density_out_slab"],
+                       ceiling_bound_ms=k1_bound["bound_ms"],
+                       ceiling_bound_by=k1_bound["bound_by"],
+                       ceiling_shape=list(grid.plane_shape))
     print(f"#   K1 out= (into the dead rho) on the ceiling planes: "
           f"{'no record in 3 traces' if k1c_ms is None else k1c_ms} ms "
           f"(profiler, 10 calls; {k1_ms:.3f} by CUDA events "
@@ -3618,27 +3739,28 @@ def reference_tools(kernels: list, card: str) -> None:
     check(sc["finite"] and sc["lost"] == 0
           and sc["alive"] + sc["suspended"] == sc["n"],
           f"bench_scale lost particles: {sc}")
-    # the tool's own gate (the reference's: overflow 0 and finite) and the
-    # steps' peak against what the automatic postures budget this posture
-    # (verlet_solver.FOOTPRINTS): each held and recorded; a miss is a
-    # known failure (the overflow regime of the deep column, README; F5,
-    # ROADMAP queue 3), printed as one
+    # the tool's own gate (the reference's: overflow 0 and finite),
+    # recorded, a miss printed as a known failure (the overflow regime of
+    # the deep column, README); and the steps' peak, collecting rebins
+    # included, within what the automatic postures budget this posture
+    # (verlet_solver.FOOTPRINTS; F5, closed)
     check(sc["ok"] == (sc["overflow"] == 0 and sc["finite"]),
           f"bench_scale's ok is not its gate: {sc}")
     posture = ("default" if not sc["planar"]
                else "ceiling" if sc["refless"] else "planar")
     budget = vs.FOOTPRINTS[posture]
-    known = ([] if sc["ok"] else [
+    known = [] if sc["ok"] else [
         f"bench_scale's own gate fails: overflow {sc['overflow']} (all "
         f"recovered: lost {sc['lost']}), the 96M deep column's overflow "
-        f"regime"]) + ([] if sc["peak_plane_footprints"] <= budget else [
-            f"F5: the {posture} posture's steps peak at "
-            f"{sc['peak_plane_footprints']:.3f} plane-footprints > "
-            f"FOOTPRINTS[{posture!r}] = {budget}"])
+        f"regime"]
     print(f"#   bench_scale against its gate and its budget: peak "
           f"{sc['peak_plane_footprints']:.3f} vs FOOTPRINTS[{posture!r}] "
           f"{budget}; known failures: {known or 'none'} on {card}",
           flush=True)
+    check(round(sc["peak_plane_footprints"], 3) <= budget,
+          f"the {posture} posture's steps peak at "
+          f"{sc['peak_plane_footprints']:.3f} plane-footprints > "
+          f"FOOTPRINTS[{posture!r}] = {budget}")
     check(ln["density"] == ln["forces_integrate"] == 4 * 300
           and ln["reslot"] == sc["rebins"] - 1, f"bench_scale's kernels: {ln}")
     gc_collect()
@@ -3674,6 +3796,260 @@ def reference_tools(kernels: list, card: str) -> None:
           flush=True)
 
 
+EXP_N = (1_000_000, 96_000_000)   # phase 20: the tools' size, bench_scale's
+EXP_REPS = {1_000_000: 50, 96_000_000: 10}  # timed launches a kernel
+EXP_SOURCES = {        # phase 20's kernels: (source, the TPU kernel)
+    "forces_integrate_dbuf": ("exp_dbuf.cu", "tools/exp_dbuf.py:38"),
+    "density_t": ("exp_tlayout.cu", "tools/exp_tlayout.py:37"),
+    "forces_t": ("exp_tlayout.cu", "tools/exp_tlayout.py:84"),
+    **{f"forces_variant_{v}": ("exp_forces.cu", "tools/exp_forces.py:47")
+       for v in ("v0", "v0nr", "v1", "v2", "v3")},
+}
+
+
+def exp_rows(n: int, full: bool, card: str) -> dict:
+    """Phase 20's kernel rows at ~``n`` particles: T1 and T4 on the
+    exp_dbuf / exp_forces scene (the dam break after 300 Session steps,
+    skin 1.75), T2 and T3 on the exp_tlayout scene (``init_dense``, skin
+    1.5), each held against its production counterpart (T1 bitwise K2,
+    T2 bitwise K1 after movedim, T4 v0 bitwise K8 and v3 bitwise v2, T3
+    and T4 v1 / v2 within 1e-5 of max |a| of K8) and, ``full`` (the tools'
+    reference size), against its twin at its counterpart's card gate; the
+    ms of each and of its counterpart on the same planes (``full``:
+    profiler device time; else CUDA events over ten wrapper calls, since
+    the profiler keeps only some records of a kernel of several ms), its
+    bound (T1 K2's bytes and operations, T2 K1's, T3 and T4 K8's; v0nr
+    K8's bytes and one operation fewer a tap).  Returns {name: row}."""
+    from bevy_gpu_fluid_tpu_torch import tools
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+    from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
+    from bevy_gpu_fluid_tpu_torch.tools import exp_tlayout
+
+    dev = torch.device("cuda", 0)
+    reps = EXP_REPS[n]
+    twins = full
+    rows = {}
+
+    def timed(fn, kernel):
+        return kernel_ms(fn, kernel, reps) if full else cuda_ms(fn, reps)
+
+    sim, sc, rho0 = tools.developed(n, dev)
+    s, params, cfg, grid = sim, sc.params, sc.cfg, sc.grid
+    plane_b, occ_b = 4.0 * s.xd.numel(), 4.0 * s.occ.numel()
+    need_taps, _ = tile_taps(s.xd, s.occ, grid)
+    n_live = float((s.xd < 5e8).sum())
+
+    # T1 against K2
+    fargs = (s.xd, s.yd, s.vxd, s.vyd, rho0, s.ref_xd, s.ref_yd, params,
+             cfg, grid, s.occ)
+    t1 = lambda: ek.forces_integrate_dbuf_cuda(*fargs)
+    k2 = lambda: cuda_solver.forces_integrate_cuda(*fargs)
+    got, prod = t1(), k2()
+    same = (all(bits_equal(a, b) for a, b in zip(got[:4], prod[:4]))
+            and bits_equal(got[4], prod[4]))
+    check(same, f"T1 not bitwise K2 at {grid.plane_shape}")
+    err = 0.0
+    if twins:
+        want = ek.forces_integrate_dbuf_torch(*fargs)
+        pos_err = max(float((g - w).abs().max())
+                      for g, w in zip(got[:2], want[:2]))
+        vscale = float(torch.maximum(want[2].abs().max(),
+                                     want[3].abs().max()))
+        vel_err = max(float((g - w).abs().max())
+                      for g, w in zip(got[2:4], want[2:4]))
+        d_err = abs(float(got[4]) - float(want[4]))
+        check(pos_err <= 1e-5 and vel_err <= 1e-4 * vscale
+              and d_err <= 1e-4 * float(want[4]),
+              f"T1 vs its twin: {pos_err} {vel_err} {d_err}")
+        err = max(pos_err, vel_err, d_err)
+        del want
+    del got, prod
+    rows["forces_integrate_dbuf"] = dict(
+        max_abs_err=err, ms=timed(t1, "dbuf_kernel"),
+        prod="forces_integrate",
+        prod_ms=timed(k2, "forces_integrate_kernel"),
+        plain_ms=(cuda_ms(lambda: ek.forces_integrate_dbuf_torch(*fargs), 3)
+                  if twins else None),
+        **bound(11 * plane_b + occ_b + 4,
+                need_taps * FORCE_OPS + n_live * 20))
+
+    # T4's variants against K8
+    f8 = (s.xd, s.yd, s.vxd, s.vyd, rho0, params, grid, s.occ)
+    a8 = cuda_solver.forces_cuda(*f8)
+    a_scale = float(torch.maximum(a8[0].abs().max(), a8[1].abs().max()))
+    k8_ms = timed(lambda: cuda_solver.forces_cuda(*f8), "forces_kernel")
+    b8 = bound_k8(s.xd, s.occ, grid)
+    outs = {}
+    for v in ek.VARIANTS:
+        fn = lambda v=v: ek.forces_variant_cuda(*f8, v)
+        outs[v] = fn()
+        err = None
+        if twins:
+            want = ek.forces_variant_torch(*f8, v)
+            err = k8_check(outs[v], want, s.xd, f"T4 {v}")[0]
+            del want
+        b = b8 if v != "v0nr" else bound(
+            b8["bound_bytes"],
+            live_taps(s.xd, s.occ.amax(dim=0), grid) * (FORCE_OPS - 1)
+            + n_live * 3)
+        rows[f"forces_variant_{v}"] = dict(
+            max_abs_err=err, ms=timed(fn, "forces_variant_kernel"),
+            prod="forces", prod_ms=k8_ms,
+            plain_ms=(cuda_ms(lambda v=v: ek.forces_variant_torch(*f8, v), 3)
+                      if twins else None), **b)
+    check(all(bits_equal(a, b) for a, b in zip(outs["v0"], a8)),
+          "T4 v0 not bitwise K8")
+    check(all(bits_equal(a, b) for a, b in zip(outs["v3"], outs["v2"])),
+          "T4 v3 not bitwise v2")
+    for v in ("v1", "v2"):
+        d = max(float((a - b).abs().max()) for a, b in zip(outs[v], a8))
+        rows[f"forces_variant_{v}"]["vs_prod"] = d
+        check(d <= 1e-5 * a_scale, f"T4 {v} vs K8: {d} of {a_scale}")
+    rows["forces_variant_v0nr"]["vs_prod"] = max(
+        float((a - b).abs().max()) for a, b in zip(outs["v0nr"], a8))
+    del sim, s, rho0, fargs, f8, a8, outs
+    gc_collect()
+
+    # T2 and T3 against K1 and K8 on the slot-major planes of the
+    # exp_tlayout scene
+    s, tsc = exp_tlayout.scene(n, dev)
+    grid = tsc.grid
+    plane_b, occ_b = 4.0 * s.xd.numel(), 4.0 * s.occ.numel()
+    need_taps, _ = tile_taps(s.xd, s.occ, grid)
+    xt, yt = ek.to_slot_major(s.xd), ek.to_slot_major(s.yd)
+    occ_t = ek.block_kmax3_t(xt, grid)
+    d1 = (s.xd, s.yd, params, grid, s.occ)
+    rho = cuda_solver.density_cuda(*d1)
+    t2 = lambda: ek.density_t_cuda(xt, yt, params, grid, occ_t)
+    rho_t = t2()
+    check(bits_equal(ek.from_slot_major(rho_t), rho),
+          f"T2 not bitwise K1 at {grid.plane_shape}")
+    err = 0.0
+    if twins:
+        want = ek.density_t_torch(xt, yt, params, grid, occ_t)
+        err = float(((rho_t - want).abs()
+                     / want.abs().clamp_min(1e-30)).max())
+        check(err <= 1e-5, f"T2 vs its twin: rel {err}")
+        del want
+    rows["density_t"] = dict(
+        max_abs_err=err, ms=timed(t2, "density_t_kernel"),
+        prod="density",
+        prod_ms=timed(lambda: cuda_solver.density_cuda(*d1),
+                      "density_kernel"),
+        plain_ms=(cuda_ms(lambda: ek.density_t_torch(xt, yt, params, grid,
+                                                     occ_t), 3)
+                  if twins else None),
+        **bound(3 * plane_b + occ_b, need_taps * DENSITY_OPS))
+    vxt, vyt = ek.to_slot_major(s.vxd), ek.to_slot_major(s.vyd)
+    targs = (xt, yt, vxt, vyt, rho_t, params, grid, occ_t)
+    f8 = (s.xd, s.yd, s.vxd, s.vyd, rho, params, grid, s.occ)
+    t3 = lambda: ek.forces_t_cuda(*targs)
+    a_t, a8 = t3(), cuda_solver.forces_cuda(*f8)
+    a_scale = float(torch.maximum(a8[0].abs().max(), a8[1].abs().max()))
+    d = max(float((ek.from_slot_major(a) - b).abs().max())
+            for a, b in zip(a_t, a8))
+    check(d <= 1e-5 * a_scale, f"T3 vs K8: {d} of {a_scale}")
+    err = None
+    if twins:
+        err = k8_check(a_t, ek.forces_t_torch(*targs), xt, "T3")[0]
+    rows["forces_t"] = dict(
+        max_abs_err=err, vs_prod=d, ms=timed(t3, "forces_t_kernel"),
+        prod="forces",
+        prod_ms=timed(lambda: cuda_solver.forces_cuda(*f8),
+                      "forces_kernel"),
+        plain_ms=(cuda_ms(lambda: ek.forces_t_torch(*targs), 3)
+                  if twins else None),
+        **bound_k8(s.xd, s.occ, grid))
+    for name, r in rows.items():
+        r.update(ratio=r["ms"] / r["prod_ms"],
+                 grid=list(grid.plane_shape) if name in ("density_t",
+                                                         "forces_t")
+                 else list(sc.grid.plane_shape))
+        print(f"#   {name} at {r['grid']}: {r['ms']:.4f} ms "
+              f"({'profiler' if full else 'CUDA events'}) vs "
+              f"{r['prod']} {r['prod_ms']:.4f} ms ({r['ratio']:.3f}x), "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bound_ms'] / r['ms']:.0%} of it); max err vs its twin "
+              f"{r['max_abs_err']}; on {card}", flush=True)
+    return rows
+
+
+def kernel_experiments(kernels: list, card: str) -> None:
+    """Phase 20: the reference's kernel experiments T1-T4 (the tools
+    ``exp_forces``, ``exp_tlayout`` and ``exp_dbuf``) at their reference
+    size, 1M, and at bench_scale's 96M, each tool through its ``main``
+    with the launch counters zeroed before the three and read after; then
+    each kernel against its production counterpart (at 1M also against
+    its twin), timed, bounded and with its occupancy: the kernel table's
+    rows."""
+    from bevy_gpu_fluid_tpu_torch.kernels import _build
+    from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
+    from bevy_gpu_fluid_tpu_torch.tools import (exp_dbuf, exp_forces,
+                                                exp_tlayout)
+
+    t_phase = time.perf_counter()
+    # ptxas's registers, stack and spills of the experiments' kernels
+    entry = None
+    for line in _build.build()[2].splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif entry and re.search(r"dbuf_kernel|_t_kernel|variant_kernel",
+                                 entry) and re.search(
+                                     r"registers|stack|spill", line):
+            print(f"#   ptxas: {entry.split()[-3]} {line.strip()}")
+    cap = 8
+    occ = {"forces_integrate_dbuf": _build.occupancy(
+               "forces_integrate_dbuf", cap),
+           "density_t": _build.occupancy("density_t", cap),
+           "forces_t": _build.occupancy("forces_t", cap),
+           **{f"forces_variant_{v}": _build.occupancy("forces_variant", cap,
+                                                      i)
+              for i, v in enumerate(ek.VARIANTS)}}
+    for name, o in occ.items():
+        print(f"# phase 20: {name} at cap {cap}: {o} (registers per thread, "
+              f"shared memory bytes per block, blocks per SM)", flush=True)
+        check(o["local_bytes"] == 0 and o["blocks_per_sm"] >= 1,
+              f"{name}: {o}")
+    print(f"#   forces_integrate_dbuf launches {ek.dbuf_grid(cap)} "
+          f"persistent blocks", flush=True)
+
+    launches = {}
+    for n in EXP_N:
+        zero_launches()
+        t0 = time.perf_counter()
+        for tool in (exp_forces, exp_tlayout, exp_dbuf):
+            rc = tool.main(["--n", str(n)])
+            check(rc == 0, f"{tool.__name__} --n {n} exited {rc}")
+            gc_collect()
+        launches[n] = read_launches()
+        print(f"# phase 20: exp_forces, exp_tlayout and exp_dbuf at --n {n} "
+              f"in {time.perf_counter() - t0:.1f} s: launches "
+              f"{ {k: launches[n][k] for k in EXP_SOURCES} } on {card}",
+              flush=True)
+        check(all(launches[n][k] > 0 for k in EXP_SOURCES),
+              f"a kernel of phase 20 did not launch at {n}: {launches[n]}")
+
+    rows = {n: exp_rows(n, n == EXP_N[0], card) for n in EXP_N}
+    for name, (src, ref) in EXP_SOURCES.items():
+        r, big = rows[EXP_N[0]][name], rows[EXP_N[-1]][name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"bevy_gpu_fluid_tpu_torch/csrc/{src}", replaces=ref,
+            launches=launches[EXP_N[0]][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], library_ms=None,
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            bound_bytes=r["bound_bytes"], bound_ops=r["bound_ops"],
+            prod=r["prod"], prod_ms=r["prod_ms"], ratio=r["ratio"],
+            vs_prod=r.get("vs_prod"), grid=r["grid"], **occ[name],
+            launches_96m=launches[EXP_N[-1]][name], ms_96m=big["ms"],
+            prod_ms_96m=big["prod_ms"], ratio_96m=big["ratio"],
+            bound_ms_96m=big["bound_ms"], bound_by_96m=big["bound_by"],
+            grid_96m=big["grid"]))
+    print(f"# phase 20: {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3691,6 +4067,18 @@ def main() -> None:
         from bevy_gpu_fluid_tpu_torch.kernels import _build
         _build.load()
         serving_and_tooling([], smi_line())
+        return
+    if sys.argv[1:] == ["14"]:      # phase 14 alone: no result line
+        kernels = []
+        footprints_and_ceiling(kernels, smi_line())
+        print(json.dumps({"kernels": kernels}))
+        return
+    if sys.argv[1:] == ["20"]:      # phase 20 alone: no result line
+        from bevy_gpu_fluid_tpu_torch.kernels import _build
+        _build.load()
+        kernels = []
+        kernel_experiments(kernels, smi_line())
+        print(json.dumps({"kernels": kernels}))
         return
     if sys.argv[1:] == ["19"]:      # phase 19 alone: no result line
         from bevy_gpu_fluid_tpu_torch.kernels import _build
@@ -3714,6 +4102,8 @@ def main() -> None:
     serving_and_tooling(kernels, card)
     gc_collect()
     reference_tools(kernels, card)
+    gc_collect()
+    kernel_experiments(kernels, card)
     gc_collect()
     footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,11 @@ relative on live slots and every output of its dead slots bitwise; K4
 1e-5 relative on wet pixels; K8 1e-5 of the plane's max |a| per slot and
 its dead slots bitwise (+0); K2 refless bitwise K2 with the old positions
 as the reference (and within K2's tolerances of its twin), K1 with
-``out=`` bitwise without it.  The kernels contract multiply-adds into FMAs
+``out=`` bitwise without it.  The kernel experiments (T1-T4) at their
+production counterparts' gates against their twins: T1 as K2 and bitwise
+K2, T2 as K1 and bitwise K1 after ``movedim``, T3 and T4 as K8, T4's v0
+bitwise K8 and v3 bitwise v2, T3 and T4's v1 and v2 within K8's gate of
+K8.  The kernels contract multiply-adds into FMAs
 and use the hardware rsqrt; the twins round every operation.  The planar
 Session is bitwise the fused one (both rebins route the same values); the
 generator init, the segmented driver and a restored Session are bitwise
@@ -31,6 +35,7 @@ import torch
 
 import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
 from bevy_gpu_fluid_tpu_torch.ops import reslot
 from bevy_gpu_fluid_tpu_torch.ops.binning import FAR, bin_particles, to_dense
@@ -1019,3 +1024,101 @@ def test_interactive_selfdrive_on_card(cuda):
     assert interactive.selfdrive(app, 12) == 0
     assert raster.field_density_cuda.launches - k4 == 12
     assert app.kicks and app.sim.overflow == 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel experiments (models/exp_kernels.py) on the kicked block and on
+# the crowded ragged grid
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(params=["moving", "crowded"])
+def exp_scene(request):
+    """(sim, grid, cfg, rho): the kicked block's planes or the crowded
+    ragged grid's, and K1's density of them."""
+    if request.param == "moving":
+        s, grid, cfg = request.getfixturevalue("moving_sim"), GRID, CFG
+    else:
+        s, grid, cfg = request.getfixturevalue("crowded")
+    return s, grid, cfg, cuda_solver.density_cuda(s.xd, s.yd, PARAMS, grid,
+                                                  s.occ)
+
+
+def _accel_gate(got, want, xd):
+    """K8's gate: 1e-5 of max |a| per slot, dead slots (ghost blocks
+    included) bitwise +0."""
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 10.0
+    dead = xd >= FAR * 0.5
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+        assert bool((_bits(g[dead]) == 0).all())
+        assert torch.equal(_bits(g[dead]), _bits(w[dead]))
+    return scale
+
+
+def test_dbuf_kernel_bitwise_k2(exp_scene):
+    s, grid, cfg, rho = exp_scene
+    args = (s.xd, s.yd, s.vxd, s.vyd, rho, s.ref_xd, s.ref_yd, PARAMS, cfg,
+            grid, s.occ)
+    before = ek.forces_integrate_dbuf_cuda.launches
+    got = ek.forces_integrate_dbuf_cuda(*args)
+    assert ek.forces_integrate_dbuf_cuda.launches == before + 1
+    k2 = cuda_solver.forces_integrate_cuda(*args)
+    for g, w in zip(got, k2):
+        assert torch.equal(_bits(g), _bits(w))
+    # T1's twin is K2's, so K2's gate against it is T1's
+    _forces_integrate_matches(s, grid, cfg, rho)
+
+
+def test_dbuf_kernel_persistent_grid(cuda):
+    from bevy_gpu_fluid_tpu_torch.kernels import _build
+    occ = _build.occupancy("forces_integrate_dbuf", 8)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0
+    assert ek.dbuf_grid(8) == occ["blocks_per_sm"] * sms
+
+
+def test_density_t_kernel_bitwise_k1(exp_scene):
+    s, grid, _, rho = exp_scene
+    xt, yt = ek.to_slot_major(s.xd), ek.to_slot_major(s.yd)
+    occ_t = ek.block_kmax3_t(xt, grid)
+    before = ek.density_t_cuda.launches
+    got = ek.density_t_cuda(xt, yt, PARAMS, grid, occ_t)
+    assert ek.density_t_cuda.launches == before + 1
+    assert torch.equal(_bits(ek.from_slot_major(got)), _bits(rho))
+    want = ek.density_t_torch(xt, yt, PARAMS, grid, occ_t)
+    assert float(((got - want).abs() / want.abs().clamp_min(1e-30)).max()) \
+        <= 1e-5
+
+
+def test_forces_t_kernel_matches_twin_and_k8(exp_scene):
+    s, grid, _, rho = exp_scene
+    xt, yt, vxt, vyt, rhot = (ek.to_slot_major(p) for p in
+                              (s.xd, s.yd, s.vxd, s.vyd, rho))
+    args = (xt, yt, vxt, vyt, rhot, PARAMS, grid, ek.block_kmax3_t(xt, grid))
+    before = ek.forces_t_cuda.launches
+    got = ek.forces_t_cuda(*args)
+    assert ek.forces_t_cuda.launches == before + 1
+    _accel_gate(got, ek.forces_t_torch(*args), xt)
+    k8 = cuda_solver.forces_cuda(s.xd, s.yd, s.vxd, s.vyd, rho, PARAMS, grid,
+                                 s.occ)
+    _accel_gate([ek.from_slot_major(a) for a in got], k8, s.xd)
+
+
+@pytest.mark.parametrize("variant", ek.VARIANTS)
+def test_forces_variant_kernel_matches_twin(exp_scene, variant):
+    s, grid, _, rho = exp_scene
+    args = (s.xd, s.yd, s.vxd, s.vyd, rho, PARAMS, grid, s.occ)
+    name = f"launches_{variant}"
+    before = getattr(ek.forces_variant_cuda, name)
+    got = ek.forces_variant_cuda(*args, variant)
+    assert getattr(ek.forces_variant_cuda, name) == before + 1
+    _accel_gate(got, ek.forces_variant_torch(*args, variant), s.xd)
+    k8 = cuda_solver.forces_cuda(*args)
+    if variant == "v0":
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, k8))
+    elif variant == "v3":
+        v2 = ek.forces_variant_cuda(*args, "v2")
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, v2))
+    if variant != "v0nr":
+        _accel_gate(got, k8, s.xd)

@@ -298,7 +298,12 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.tools.bench_mono_ab, "
             "bevy_gpu_fluid_tpu_torch.tools.bench_scale, "
             "bevy_gpu_fluid_tpu_torch.tools.bench_sharded, "
-            "bevy_gpu_fluid_tpu_torch.tools.bench_aot; "
+            "bevy_gpu_fluid_tpu_torch.tools.bench_aot, "
+            # the kernel experiments
+            "bevy_gpu_fluid_tpu_torch.models.exp_kernels, "
+            "bevy_gpu_fluid_tpu_torch.tools.exp_forces, "
+            "bevy_gpu_fluid_tpu_torch.tools.exp_tlayout, "
+            "bevy_gpu_fluid_tpu_torch.tools.exp_dbuf; "
             # the very-large-N slab postures, driven: they import lazily
             "import torch, bevy_gpu_fluid_tpu_torch as bt; "
             "torch.set_num_threads(1); "
