@@ -1,19 +1,26 @@
-"""The reference package's chip tools (the repo's ``tools/``), ported to the
-card: ``python -m bevy_gpu_fluid_tpu_torch.tools.<name>``.
+"""The reference package's chip tools (the repo's ``tools/`` and its root
+``bench.py``), ported to the card:
+``python -m bevy_gpu_fluid_tpu_torch.tools.<name>``.
 
-``validate_longrun`` (the long-horizon pool and the resident-checkpoint
-restore), ``dryrun_d8`` (D = 8 slabs at 102,400 particles),
-``bench_mono_ab`` (the mono step K5 against K1 + K2), ``bench_scale`` (one
-card near its memory ceiling), ``bench_sharded`` (the slab path) and
-``bench_aot`` (cold starts with and without an exported artifact); and the
-reference's kernel experiments against their production counterparts,
-``exp_forces`` (K8's arithmetic variants), ``exp_tlayout`` (K1 and K8 on
-slot-major planes) and ``exp_dbuf`` (K2 staged ahead, persistent).  Each
-runs on the CUDA card unless given ``--cpu`` (``device="cpu"`` for its
-functions, which run the kernels' PyTorch twins), and raises rather than
-fall back to the CPU when no card is found.  Each ``main(argv)`` returns 0
-when every gate holds, else 1, and prints the reference tool's lines (its
-JSON line under its metric names, where it has one).
+``bench`` is ``bench.py``: particle-steps/s on the 1M dam break in its
+differential window, printed last as ``bench.py``'s one JSON line (the
+same keys, metric name and rounding), and its modes (``--solver pallas``,
+``--sweep``, ``--fps``, ``--frames``, ``--golden``); its tests run on the
+CPU (``pytest tests/test_torch_bench.py``).  ``validate_longrun`` (the
+long-horizon pool and the resident-checkpoint restore), ``dryrun_d8`` (D
+= 8 slabs at 102,400 particles), ``bench_mono_ab`` (the mono step K5
+against K1 + K2), ``bench_scale`` (one card near its memory ceiling),
+``bench_sharded`` (the slab path) and ``bench_aot`` (cold starts with and
+without an exported artifact); and the reference's kernel experiments
+against their production counterparts, ``exp_forces`` (K8's arithmetic
+variants), ``exp_tlayout`` (K1 and K8 on slot-major planes) and
+``exp_dbuf`` (K2 staged ahead, persistent).  Each runs on the CUDA card
+unless given ``--cpu`` (``device="cpu"`` for its functions, which run the
+kernels' PyTorch twins), and raises rather than fall back to the CPU when
+no card is found.  Each ``main(argv)`` returns 0 when every gate holds,
+else 1 (``bench`` has no gate and returns 0, as ``bench.py`` has none),
+and prints the reference tool's lines (its JSON line under its metric
+names, where it has one).
 """
 
 from __future__ import annotations
@@ -53,10 +60,10 @@ class Scene(NamedTuple):
 
 
 def dam_break(n: int, device, skin: float = 1.5,
-              state: bool = True) -> Scene:
+              state: bool = True, cap: int = 8) -> Scene:
     """The dam break of isqrt(n)^2 particles, its grid's cells ``skin`` x h
-    over [-1, extent + 1] x [0, 1.1 extent + 1]; without ``state`` (a
-    generator init) no particle tensor is made."""
+    (``cap`` slots each) over [-1, extent + 1] x [0, 1.1 extent + 1];
+    without ``state`` (a generator init) no particle tensor is made."""
     import bevy_gpu_fluid_tpu_torch as bt
     from ..models import verlet_solver
 
@@ -67,7 +74,7 @@ def dam_break(n: int, device, skin: float = 1.5,
                  bt.IntegrateConfig.create(x_min=-1.0, x_max=extent + 1.0),
                  verlet_solver.default_grid(0.045, -1.0, extent + 1.0,
                                             y_max=extent * 1.1 + 1.0,
-                                            skin_factor=skin),
+                                            cap=cap, skin_factor=skin),
                  extent)
 
 

@@ -235,6 +235,26 @@ with the validator — then checks them:
     numbers under ``*_96m`` keys.
     ``python3 chip_smoke.py 20`` runs phase 20 alone and prints no result
     line.
+21. the port's bench (``bevy_gpu_fluid_tpu_torch/tools/bench.py``,
+    bench.py's contract; run after 20, before 14), in process, each run
+    as ``main(argv)`` runs it with the launch counters zeroed before it
+    and read after it, its last stdout line parsed (bench.py's four keys,
+    metric name and rounding): (1) the headline at its defaults (1M, skin
+    1.75, 300 warm-up steps, then the first use and the best of 3 of 300
+    and 600 steps from one snapshot): rate finite and > 0, overflow 0 over
+    the horizon, at least one rebin in the window, K1 and K2 once per step
+    of the whole protocol (3,900), K3 once per rebin, K5 never; ms/step
+    differential and inclusive, the window's rebins and the implied
+    dispatch beside phase 4's skin-1.5 reading; (2) ``--solver pallas``
+    (K1 and K8 once per eager step, K2, K3 and K5 never), then
+    ``--sweep --fps --frames --golden`` in one run: K5 once per step on
+    the ``--fps`` grids and the 10k sweep, K1 and K2 once per step of the
+    100k sweep, ``--frames`` and the headline, K3 once per rebin, K4 once
+    per field frame, K8 never; ``--frames`` finite with no particle lost,
+    its overflow recorded (the deep column); (3) ``python -m
+    bevy_gpu_fluid_tpu_torch.tools.bench`` in a fresh process, its last
+    line parsed; the phase's seconds.  ``python3 chip_smoke.py 21`` runs
+    phase 21 alone and prints no result line.
 
 Every phase raises on failure.  The last lines are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -259,6 +279,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+READINGS = {}          # phase 4's ms/step, printed beside phase 21's
 sys.path.insert(0, ROOT)
 
 N_SIDE = 1000          # bench.py's 1M scene: 1000 x 1000 at spacing 0.04
@@ -775,6 +796,7 @@ def paths_1m() -> tuple[list, str]:
     launches = read_launches()
     rebins = sess.sim.rebin_count - rebins0
     ms_step = start.elapsed_time(end) / MAIN_STEPS
+    READINGS["phase4_ms_step"] = round(ms_step, 4)
     sim = sess.sim
     finite = all(bool(torch.isfinite(t).all()) for t in
                  (sim.xd, sim.yd, sim.vxd, sim.vyd, sim.rho_d))
@@ -4050,6 +4072,175 @@ def kernel_experiments(kernels: list, card: str) -> None:
           flush=True)
 
 
+def protocol_steps(args) -> int:
+    """The steps of the bench's window protocol: the warm-up, then the
+    first use and the best of 3 of a short and a double run (3,900 at the
+    defaults)."""
+    return args.warmup_steps + 4 * 3 * args.steps
+
+
+def bench_run(argv: list) -> tuple:
+    """The port's bench on ``argv`` as ``main(argv)`` runs it
+    (``bench.run(bench.parse_args(argv))``), its stdout captured and
+    echoed, the launch counters zeroed just before and read just after;
+    its last line parsed and held to bench.py's contract.  Returns (the
+    bench's results by mode, the launches, the parsed line, the parsed
+    arguments)."""
+    import contextlib
+    import io
+    from bevy_gpu_fluid_tpu_torch.tools import bench
+
+    args = bench.parse_args(argv)
+    buf = io.StringIO()
+    zero_launches()
+    with contextlib.redirect_stdout(buf):
+        out = bench.run(args)
+    launches = read_launches()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"#   bench {argv} stdout: {line}")
+    line = json.loads(lines[-1])
+    rate = out["headline"]["rate"]
+    check(list(line) == ["metric", "value", "unit", "vs_baseline"]
+          and line["metric"] ==
+          f"particle_steps_per_sec_per_chip_{args.n // 1000}k"
+          and line["unit"] == "particle-steps/s"
+          and line["value"] == round(rate, 1)
+          and line["vs_baseline"] == round(rate / 10e6, 4)
+          and line == out["line"], f"bench {argv}: last line {line}")
+    check(math.isfinite(rate) and rate > 0, f"bench {argv}: rate {rate}")
+    return out, launches, line, args
+
+
+def port_bench(card: str) -> None:
+    """Phase 21: the port's bench (``bevy_gpu_fluid_tpu_torch/tools/
+    bench.py``, bench.py's contract) at its defaults and in every mode,
+    in process with the launch counters of each run, then once as users
+    start it, in a fresh process."""
+    from bevy_gpu_fluid_tpu_torch.models import cuda_solver
+
+    t_phase = time.perf_counter()
+    quiet = ("select", "apply_code", "forces_integrate_dbuf", "density_t",
+             "forces_t")
+
+    # (1) the headline at its defaults: 1M, skin 1.75, 300 + 300/600
+    out, ran, line, args = bench_run([])
+    h = out["headline"]
+    steps = h["steps"]
+    print(f"# phase 21 (1): the headline {line['value']:.1f} particle-steps/s "
+          f"= {h['ms_per_step']:.4f} ms/step differential, "
+          f"{h['t_short'] / steps * 1e3:.4f} inclusive (the {steps}-step "
+          f"run), {h['t_long'] / (2 * steps) * 1e3:.4f} inclusive (the "
+          f"{2 * steps}-step run); implied dispatch "
+          f"{(2 * h['t_short'] - h['t_long']) * 1e3:.2f} ms; window rebins "
+          f"{h['rebins']}, overflow {h['overflow']} over the horizon, grid "
+          f"{h['grid'].plane_shape}; beside phase 4's skin-1.5 reading "
+          f"{READINGS.get('phase4_ms_step', 'not run in this call')} ms/step "
+          f"(CUDA events over 600 steps); launches {ran} on {card}",
+          flush=True)
+    check(h["overflow"] == 0 and h["finite"],
+          f"headline overflow {h['overflow']} finite {h['finite']}")
+    check(h["steps_run"] == protocol_steps(args)
+          and ran["density"] == h["steps_run"]
+          and ran["forces_integrate"] == h["steps_run"],
+          f"headline K1/K2 launches {ran} != {h['steps_run']} steps")
+    check(ran["reslot"] == h["rebins_run"] and h["rebins"] >= 1,
+          f"headline K3 launches {ran['reslot']} != {h['rebins_run']} "
+          f"rebins (window {h['rebins']})")
+    check(ran["mono_step"] == ran["forces"] == ran["field_raster"] == 0
+          and not any(ran[k] for k in quiet),
+          f"headline launched another kernel: {ran}")
+
+    # (2) the eager solver, then every other mode in one run
+    out, ran, line, args = bench_run(["--solver", "pallas"])
+    e = out["headline"]
+    print(f"# phase 21 (2): --solver pallas {line['value']:.1f} "
+          f"particle-steps/s = {e['ms_per_step']:.4f} ms/step differential, "
+          f"{e['t_short'] / e['steps'] * 1e3:.4f} inclusive; overflow "
+          f"{e['overflow']}; launches {ran} on {card}", flush=True)
+    check(e["finite"] and e["overflow"] == 0,
+          f"eager overflow {e['overflow']} finite {e['finite']}")
+    check(ran["density"] == ran["forces"] == e["steps_run"]
+          == protocol_steps(args)
+          and ran["forces_integrate"] == ran["reslot"] == 0
+          and ran["mono_step"] == ran["field_raster"] == 0
+          and not any(ran[k] for k in quiet),
+          f"eager launches {ran} != K1 + K8 x {e['steps_run']} steps")
+
+    out, ran, line, args = bench_run(["--sweep", "--fps", "--frames",
+                                      "--golden"])
+    sweep, fps, fr = out["sweep"], out["fps"], out["frames"]
+    runs = sweep + [out["headline"]]
+    mono = [r for r in runs
+            if r["grid"].n_row_blocks < cuda_solver.MONO_MAX_BLOCKS]
+    fused = [r for r in runs if all(r is not m for m in mono)]
+    check([r["n"] for r in mono] == [sweep[0]["n"]],
+          f"the sweep's 10k alone should step on K5: "
+          f"{[(r['n'], r['grid'].n_row_blocks) for r in runs]}")
+    for r in sweep:
+        print(f"#   --sweep {r['n']}: {r['rate']:.1f} particle-steps/s = "
+              f"{r['ms_per_step']:.4f} ms/step differential, "
+              f"{r['t_short'] / r['steps'] * 1e3:.4f} inclusive, "
+              f"{r['grid'].n_row_blocks} row blocks, rebins {r['rebins']}, "
+              f"overflow {r['overflow']} on {card}")
+        check(r["finite"] and r["overflow"] == 0,
+              f"sweep {r['n']}: overflow {r['overflow']}")
+    for row in fps:
+        print(f"#   --fps {row['n']}: " + ", ".join(
+            f"{k} {row[k]:.1f}" for k in row if k.startswith(("splat",
+                                                             "field_b")))
+              + f" FPS; {row['steps']} steps, {row['field_frames']} field "
+              f"frames, rebins {row['rebins']}, overflow {row['overflow']} "
+              f"on {card}")
+        check(row["overflow"] == 0 and all(
+            row[k] > 0 for k in row if k.startswith(("splat", "field_b"))),
+            f"fps {row['n']}: {row}")
+    print(f"#   --frames: {fr['n']} particles, {fr['ms_per_frame']:.2f} "
+          f"ms/frame ({fr['fps']:.1f} FPS), {fr['rate']:.1f} "
+          f"particle-steps/s with rendering, {fr['frames']} frames timed; "
+          f"overflow {fr['overflow']} (recorded, not gated: the deep "
+          f"column), lost {fr['lost']}, finite {fr['finite']}; --golden "
+          f"{out['golden']['ms_per_step']:.3f} ms/step at "
+          f"{out['golden']['n']} particles; launches {ran} on {card}",
+          flush=True)
+    check(fr["lost"] == 0 and fr["finite"],
+          f"--frames lost {fr['lost']} finite {fr['finite']}")
+    want_k5 = sum(row["steps"] for row in fps) + sum(
+        r["steps_run"] for r in mono)
+    want_k12 = fr["steps"] + sum(r["steps_run"] for r in fused)
+    want_k3 = (sum(row["rebins"] for row in fps) + fr["rebins"]
+               + sum(r["rebins_run"] for r in runs))
+    want_k4 = sum(row["field_frames"] for row in fps) + fr["frames_run"]
+    check(ran["mono_step"] == want_k5, f"K5 {ran['mono_step']} != {want_k5} "
+          f"steps on the --fps grids and the 10k sweep")
+    check(ran["density"] == ran["forces_integrate"] == want_k12,
+          f"K1/K2 {ran} != {want_k12} steps (100k sweep, --frames, 1M)")
+    check(ran["reslot"] == want_k3, f"K3 {ran['reslot']} != {want_k3} rebins")
+    check(ran["field_raster"] == want_k4,
+          f"K4 {ran['field_raster']} != {want_k4} field frames")
+    check(ran["forces"] == 0 and not any(ran[k] for k in quiet),
+          f"the modes launched another kernel: {ran}")
+
+    # (3) as users start it: a fresh process, default flags
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bevy_gpu_fluid_tpu_torch.tools.bench"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for err_line in proc.stderr.strip().splitlines()[-3:]:
+        print(f"#   fresh process stderr: {err_line}")
+    check(proc.returncode == 0, f"python -m ...tools.bench exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(list(line) == ["metric", "value", "unit", "vs_baseline"]
+          and line["metric"] == "particle_steps_per_sec_per_chip_1000k"
+          and line["value"] > 0, f"fresh process last line {line}")
+    print(f"# phase 21 (3): python -m bevy_gpu_fluid_tpu_torch.tools.bench "
+          f"in {time.perf_counter() - t0:.1f} s: {json.dumps(line)} on "
+          f"{card}", flush=True)
+    print(f"# phase 21: {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -4080,6 +4271,11 @@ def main() -> None:
         kernel_experiments(kernels, smi_line())
         print(json.dumps({"kernels": kernels}))
         return
+    if sys.argv[1:] == ["21"]:      # phase 21 alone: no result line
+        from bevy_gpu_fluid_tpu_torch.kernels import _build
+        _build.load()
+        port_bench(smi_line())
+        return
     if sys.argv[1:] == ["19"]:      # phase 19 alone: no result line
         from bevy_gpu_fluid_tpu_torch.kernels import _build
         _build.load()
@@ -4104,6 +4300,8 @@ def main() -> None:
     reference_tools(kernels, card)
     gc_collect()
     kernel_experiments(kernels, card)
+    gc_collect()
+    port_bench(card)
     gc_collect()
     footprints_and_ceiling(kernels, card)    # last: it needs the card
     print(json.dumps({"kernels": kernels}))

@@ -1122,3 +1122,22 @@ def test_forces_variant_kernel_matches_twin(exp_scene, variant):
         assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, v2))
     if variant != "v0nr":
         _accel_gate(got, k8, s.xd)
+
+
+@pytest.mark.parametrize("n", [10_000, 100_000])
+def test_bench_case_launches_on_card(cuda, n):
+    """The port's bench (tools/bench.py) at its --sweep sizes, a short
+    window: 10k steps on K5 (one launch a step, K1/K2 never), 100k on K1
+    and K2 (one launch each a step, K3 one a rebin, K5 never); the window
+    finite and overflow 0."""
+    from bevy_gpu_fluid_tpu_torch import tools
+    from bevy_gpu_fluid_tpu_torch.tools import bench
+    before = tools.launch_counts()
+    r = bench.bench_case(n, 20, warmup_steps=40, skin=1.75, device=cuda)
+    ran = tools.launches_since(before)
+    mono = n == 10_000
+    assert ran["mono_step"] == (r["steps_run"] if mono else 0)
+    assert ran["density"] == ran["forces_integrate"] == \
+        (0 if mono else r["steps_run"])
+    assert ran["reslot"] == r["rebins_run"]
+    assert ran["forces"] == 0 and r["finite"] and r["overflow"] == 0

@@ -299,6 +299,7 @@ def test_port_imports_no_jax():
             "bevy_gpu_fluid_tpu_torch.tools.bench_scale, "
             "bevy_gpu_fluid_tpu_torch.tools.bench_sharded, "
             "bevy_gpu_fluid_tpu_torch.tools.bench_aot, "
+            "bevy_gpu_fluid_tpu_torch.tools.bench, "
             # the kernel experiments
             "bevy_gpu_fluid_tpu_torch.models.exp_kernels, "
             "bevy_gpu_fluid_tpu_torch.tools.exp_forces, "
