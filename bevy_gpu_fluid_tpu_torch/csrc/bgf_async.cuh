@@ -1,7 +1,7 @@
 // Asynchronous global -> shared copies (Ampere's cp.async, on Hopper too)
 // for the kernels that stage a window without passing it through
-// registers: the slot-major stencils (exp_tlayout.cu) and the staged-ahead
-// fused step (exp_dbuf.cu).
+// registers: the slot-major density (exp_tlayout.cu's T2; T1 and T3 copy
+// by TMA boxes, bgf_tma.cuh).
 //
 // A copy is 4 bytes, one float, cached in L1 (cp.async.ca): the halo
 // window's first column, col0 - 1, is neither 16-byte aligned nor in

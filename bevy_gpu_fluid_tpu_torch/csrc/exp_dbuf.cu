@@ -13,264 +13,251 @@
 // 157 MB at the 1M planes [696, 8, 640].  K2 runs at about half that bound,
 // and with its taps removed still takes ~0.065 of its ~0.088 ms at 1M: its
 // memory phases bind, and each of its blocks stages, then taps, in turn
-// (bgf::stage_force_window's loads are synchronous), so a block's SM slot
-// idles on the loads unless another resident block has taps to run.
+// (bgf::stage_force_window's loads are synchronous).
 //
-// Design: about blocks-per-SM x SMs blocks, each walking the interior
-// tiles with a stride of the grid (the ghost tiles' fills first, in the
-// same stride).  A block keeps a ring of two stages in shared memory, each
-// sized at cap slots: the tile's window and its one-cell ring as K2 stages
-// it, (x, y, vx, vy) as a float4 and rho in the float2 that will hold the
-// EOS pair, and the tile rows of the references ref_x, ref_y.  Before it
-// computes tile i it issues tile i+1's copies (cp.async, 4 bytes each,
-// each field straight into its place in the float4 and the float2;
-// bgf_async.cuh; the next tile's slot bound kmax read from occ first),
-// commits them as a group and waits only for tile i's group.  Once a
-// stage has landed, one pass counts each window cell's live prefix and
-// turns the staged rho into (p, 1/rho) in place, with the twin's float
-// operations; then K2's own pair listing, taps (bgf::tile_accel on the
-// stage), epilogue (bgf::integrate) and displacement max against the
-// staged references.  A dead slot's x and y come from the staged window
-// below kmax (FAR past it, where every slot holds FAR), as K5 takes them.
-// One bgf::block_max_atomic per block, at the end: the max does not depend
-// on the order.  Two stages of 44 KB and ~4.6 KB of lists come to ~93 KB
-// a block at cap 8: two blocks per SM, against K2's five at 41 KB (512
-// threads a block took 84 registers, one block per SM, and ran slower).
+// Design: TMA boxes into a shared-memory stage (bgf_tma.cuh), a producer
+// warp and consumer warps.  One tensor map per input plane (x, y, vx, vy,
+// rho, ref_x, ref_y), each the dense plane [ny_pad, cap, nx_pad] as dims
+// {nx_pad, cap, ny_pad}; a tile is 4 x 28 cells from column 1 on
+// (bgf::ring_tile: its window's first column is then 16-byte aligned, as a
+// box's must be), its window a box {32, 1, rows + 2} per field at
+// (col0 - 1, slot, row0 - 1), its references a box {32, 1, rows} at
+// (col0 - 1, slot, row0), a box per slot below the tile's kmax (one box of
+// cap slots stages up to cap / kmax more bytes and measured no faster).
+// The grid is blocks-per-SM x SMs blocks walking the interior tiles with
+// the grid's stride, after their consumers have written the ghost blocks'
+// fills and ghost column 0 (x, y as they are, v = 0: K2's dead slots;
+// column 0 holds no live slot).  The producer warp's first lane waits for
+// the stage's "empty" barrier, arms its "full" barrier with the tile's
+// bytes and issues the tile's boxes (a tile with kmax 0 is armed with 0
+// bytes).  The consumer warps wait for the full barrier and, in one pass,
+// repack the landed fields into K2's packed window outside the stage (bgf::repack_force_window: (x, y, vx, vy) as a
+// float4, the EOS pair (p, 1/rho) as a float2 with the twin's float
+// operations, FAR for the window column past the plane's last, which K2
+// wraps to a ghost column, and the counts) and copy the references; then
+// they release the stage, so the producer refills it while they run K2's
+// pair listing, taps (bgf::tile_accel: K2's loads and float operations),
+// epilogue (bgf::integrate), displacement max and dead-slot pass.  One max
+// per block, at the end (the max does not depend on the order).  The
+// packed window costs two shared loads a tap; the landed fields, one array
+// each, would cost six (a first design tapped them and ran 2.4x K2).
+// Eleven consumer warps and one producer, two blocks per SM
+// (__launch_bounds__ caps the registers for them): 24 resident warps per
+// SM.  2-row tiles at four blocks of five consumer warps (24 warps too)
+// spilled at the 80 registers that leaves a thread and ran 9% slower
+// (tools/torch_tile_study.py's t1_r2; PERF.md).
 
-#include "bgf_async.cuh"
 #include "bgf_common.cuh"
+#include "bgf_tma.cuh"
 
 namespace {
 
-constexpr int kBlock = bgf::kThreads;  // 256, as K2 (512 measured slower)
+constexpr int kRows = 4;            // tile rows (x bgf::kRingCols columns)
+constexpr int kW = kRows + 2;       // window rows
+constexpr int kWarps = 11;          // consumer warps (+ one producer warp)
+constexpr int kCons = 32 * kWarps;  // consumer threads
+constexpr int kThreads = kCons + 32;
+constexpr int kMinBlocks = 2;       // blocks per SM it is built for
+constexpr int kWinFields = 5;       // x, y, vx, vy, rho
+constexpr int kRefFields = 2;       // ref_x, ref_y
+static_assert(kWarps <= bgf::kMaxWarps, "a warp maximum per consumer warp");
 
-// Floats of one window field and of one reference field at cap slots; a
-// stage holds the (x, y, vx, vy) window as float4, the (rho -> p, 1/rho)
-// window as float2 and the two reference fields.
-__host__ __device__ __forceinline__ int win_floats(int cap) {
-  return bgf::kWinRows * cap * bgf::kWinCols;
-}
-__host__ __device__ __forceinline__ int ref_floats(int cap) {
-  return bgf::kTileRows * cap * bgf::kWinCols;
-}
-__host__ __device__ __forceinline__ int stage_floats(int cap) {
-  return 6 * win_floats(cap) + 2 * ref_floats(cap);
-}
-
-// Dynamic shared memory: two stages, the window counts, the pair list and
-// the pair count.
-int dbuf_smem(int cap) {
-  return 2 * stage_floats(cap) * 4 + bgf::kWinRows * bgf::kWinCols * 4 +
-         bgf::kTileCells * cap * 4 + 4;
-}
-
-struct Stage {
-  float4* win;      // (x, y, vx, vy), window slot (wr, kj, wc) at
-                    // (wr * kmax + kj) * kWinCols + wc
-  float2* eos;      // (rho, -) as copied, then (p, 1/rho)
-  float* ref_x;     // tile slot (tr, s, tc) at (tr * kmax + s) * kWinCols
-  float* ref_y;     // + tc
+struct Maps {
+  CUtensorMap win[kWinFields];
+  CUtensorMap ref[kRefFields];
 };
 
-__device__ __forceinline__ Stage stage_at(float* ring, int st, int cap) {
-  float* S = ring + st * stage_floats(cap);
-  const int w = win_floats(cap);
-  return Stage{reinterpret_cast<float4*>(S),
-               reinterpret_cast<float2*>(S + 4 * w), S + 6 * w,
-               S + 6 * w + ref_floats(cap)};
+// Floats of one window field and of one reference field in the stage.
+__host__ __device__ __forceinline__ int win_floats(int cap) {
+  return kW * cap * bgf::kWinCols;
+}
+__host__ __device__ __forceinline__ int ref_floats(int cap) {
+  return kRows * cap * bgf::kWinCols;
+}
+__host__ __device__ __forceinline__ int stage_floats(int cap) {
+  return kWinFields * win_floats(cap) + kRefFields * ref_floats(cap);
 }
 
-// Issues the copies of tile t's window (slots kj < kmax) and its reference
-// rows into stage S, each field straight into its place in the float4 and
-// float2 windows, and stores (FAR, FAR, 0, 0) past the tile's ring (the
-// EOS pass writes (0, 0) there).  As bgf::stage_window: a thread per
-// window cell (a warp per window row, so its copies are coalesced) walks
-// the cell's slots.
-__device__ __forceinline__ void issue_stage(
-    const bgf::Tile& t, int kmax, int cap, int nx_pad,
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const float* __restrict__ rho, const float* __restrict__ ref_x,
-    const float* __restrict__ ref_y, const Stage& S) {
+// Dynamic shared memory: the stage, then the packed (x, y, vx, vy) and
+// (p, 1/rho) windows, the (ref_x, ref_y) tile, the window counts, the pair
+// list and its count (models/exp_kernels.dbuf_plan mirrors it).
+int dbuf_smem(int cap) {
+  return bgf::stage_smem_bytes(
+      stage_floats(cap) * 4,
+      win_floats(cap) * (16 + 8) + ref_floats(cap) * 8 +
+          kW * bgf::kWinCols * 4 + (kRows * bgf::kRingCols * cap + 1) * 4);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    dbuf_kernel(__grid_constant__ const Maps maps,
+                const float* __restrict__ x, const float* __restrict__ y,
+                const int* __restrict__ occ, float* __restrict__ ox,
+                float* __restrict__ oy, float* __restrict__ ovx,
+                float* __restrict__ ovy, unsigned int* __restrict__ disp_bits,
+                int cap, int ny_pad, int nx_pad, int tb, int nb,
+                bgf::ForceConsts fc, float rho0, float k,
+                bgf::IntegrateConsts ic) {
   using namespace bgf;
-  const long long base = static_cast<long long>(t.row0 - 1) * cap * nx_pad;
-  for (int c = threadIdx.x; c < kWinRows * kWinCols; c += kBlock) {
-    const int wr = c / kWinCols;
-    const int wc = c % kWinCols;
-    int i = wr * kmax * kWinCols + wc;
-    if (wr < t.rows + 2 && wc < t.cols + 2) {
-      long long g = base + static_cast<long long>(wr) * cap * nx_pad +
-                    wrap_col(t.col0 - 1 + wc, nx_pad);
-      for (int kj = 0; kj < kmax; ++kj, i += kWinCols, g += nx_pad) {
-        cp_async4(&S.win[i].x, x + g);
-        cp_async4(&S.win[i].y, y + g);
-        cp_async4(&S.win[i].z, vx + g);
-        cp_async4(&S.win[i].w, vy + g);
-        cp_async4(&S.eos[i].x, rho + g);
+  // a landed field's slot (wr, kj, wc) at (kj * kW + wr) * 32 + wc, a
+  // landed reference's (tr, s, c) at (s * kRows + tr) * 32 + c: a box per
+  // slot
+  const int win = win_floats(cap);
+  const int ref = ref_floats(cap);
+  extern __shared__ unsigned char smem_raw[];
+  const StageSmem sm = stage_smem(smem_raw, stage_floats(cap));
+  stage_init(sm);
+
+  const int per_rb = ((tb + kRows - 1) / kRows) * ring_tiles_x(nx_pad);
+  const int n_tiles = nb * per_rb;  // interior tiles, from row block 1 on
+
+  if (threadIdx.x >= kCons) {  // the producer warp
+    if (threadIdx.x != kCons) return;
+    for (int f = 0; f < kWinFields; ++f) prefetch_tensormap(&maps.win[f]);
+    for (int f = 0; f < kRefFields; ++f) prefetch_tensormap(&maps.ref[f]);
+    constexpr uint32_t kSlotBytes =
+        (kWinFields * kW + kRefFields * kRows) * kWinCols * 4;
+    int i = 0;
+    for (int b = blockIdx.x; b < n_tiles; b += gridDim.x, ++i) {
+      mbar_wait(sm.empty, (i & 1) ^ 1);
+      const Tile t = ring_tile(b + per_rb, nx_pad, tb, kRows);
+      const int kmax = block_kmax(occ, nb, t.rb - 1);
+      mbar_arrive_expect_tx(sm.full, kmax * kSlotBytes);
+      for (int j = 0; j < kmax; ++j) {
+        for (int f = 0; f < kWinFields; ++f)
+          tma_load_3d(sm.stage + f * win + j * kW * kWinCols, &maps.win[f],
+                      sm.full, t.col0 - 1, j, t.row0 - 1);
+        for (int f = 0; f < kRefFields; ++f)
+          tma_load_3d(sm.stage + kWinFields * win + f * ref +
+                          j * kRows * kWinCols,
+                      &maps.ref[f], sm.full, t.col0 - 1, j, t.row0);
       }
-    } else {
-      for (int kj = 0; kj < kmax; ++kj, i += kWinCols)
-        S.win[i] = make_float4(kFar, kFar, 0.0f, 0.0f);
     }
+    return;
   }
-  for (int c = threadIdx.x; c < kTileRows * kWinCols; c += kBlock) {
-    const int tr = c / kWinCols;
-    const int tc = c % kWinCols;
-    if (tr >= t.rows || tc >= t.cols) continue;
-    int i = tr * kmax * kWinCols + tc;
-    long long g = base + tile_offset(t, tr, 0, tc, cap, nx_pad);
-    for (int s = 0; s < kmax; ++s, i += kWinCols, g += nx_pad) {
-      cp_async4(S.ref_x + i, ref_x + g);
-      cp_async4(S.ref_y + i, ref_y + g);
-    }
-  }
-}
 
-__global__ void __launch_bounds__(kBlock) dbuf_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const float* __restrict__ rho, const float* __restrict__ ref_x,
-    const float* __restrict__ ref_y, const int* __restrict__ occ,
-    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
-    float* __restrict__ ovy, unsigned int* __restrict__ disp_bits, int cap,
-    int nx_pad, int tb, int nb, bgf::ForceConsts fc, float rho0, float k,
-    bgf::IntegrateConsts ic) {
-  using namespace bgf;
-  const int per_rb = ((tb + kTileRows - 1) / kTileRows) *
-                     ((nx_pad + kTileCols - 1) / kTileCols);
-  // the ghost blocks' tiles (row blocks 0 and nb + 1): K2's fills
-  for (int b = blockIdx.x; b < 2 * per_rb; b += gridDim.x) {
-    const Tile t = tile_at(b < per_rb ? b : b + nb * per_rb, nx_pad, tb);
-    const long long base = static_cast<long long>(t.row0 - 1) * cap * nx_pad;
-    for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {
-      const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
+  float4* pwin = reinterpret_cast<float4*>(sm.tail);
+  float2* eos = reinterpret_cast<float2*>(pwin + win);
+  float2* refs = eos + win;  // tile slot (tr, s, tc) at (tr * kmax + s) * 32
+  int* cnt = reinterpret_cast<int*>(refs + ref);
+  int* pairs = cnt + kW * kWinCols;
+  int* n_pairs = pairs + kRows * kRingCols * cap;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // K2's fills of the ghost blocks (FAR, zero velocity) and of ghost column
+  // 0, in no tile (x and y as they are, zero velocity: its slots are dead)
+  const long long half = static_cast<long long>(tb) * cap * nx_pad;
+  const long long n_col0 = static_cast<long long>(nb) * tb * cap;
+  for (long long e = static_cast<long long>(blockIdx.x) * kCons + threadIdx.x;
+       e < 2 * half + n_col0; e += static_cast<long long>(gridDim.x) * kCons) {
+    if (e < 2 * half) {
+      const long long g =
+          e < half ? e : e - half + static_cast<long long>(nb + 1) * half;
       ox[g] = kFar;
       oy[g] = kFar;
       ovx[g] = 0.0f;
       ovy[g] = 0.0f;
-    });
+    } else {  // (row, slot) layer tb * cap + q, column 0
+      const long long g =
+          (static_cast<long long>(tb) * cap + e - 2 * half) * nx_pad;
+      ox[g] = x[g];
+      oy[g] = y[g];
+      ovx[g] = 0.0f;
+      ovy[g] = 0.0f;
+    }
   }
 
-  extern __shared__ float4 smem[];
-  float* ring = reinterpret_cast<float*>(smem);  // two stages
-  int* cnt = reinterpret_cast<int*>(ring + 2 * stage_floats(cap));
-  int* pairs = cnt + kWinRows * kWinCols;
-  int* n_pairs = pairs + kTileCells * cap;
-
-  const int n_tiles = nb * per_rb;  // interior tiles, from row block 1 on
   float d2 = 0.0f;
-  if (static_cast<int>(blockIdx.x) < n_tiles) {
-    const Tile t0 = tile_at(blockIdx.x + per_rb, nx_pad, tb);
-    issue_stage(t0, block_kmax(occ, nb, t0.rb - 1), cap, nx_pad, x, y, vx,
-                vy, rho, ref_x, ref_y, stage_at(ring, 0, cap));
-  }
-  cp_async_commit();
-  int st = 0;
-  for (int b = blockIdx.x; b < n_tiles; b += gridDim.x, st ^= 1) {
-    // stage ahead: tile b + gridDim.x into the other stage, which the
-    // previous iteration finished reading before its closing sync
-    const int b_next = b + gridDim.x;
-    if (b_next < n_tiles) {
-      const Tile tn = tile_at(b_next + per_rb, nx_pad, tb);
-      issue_stage(tn, block_kmax(occ, nb, tn.rb - 1), cap, nx_pad, x, y, vx,
-                  vy, rho, ref_x, ref_y, stage_at(ring, st ^ 1, cap));
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group has landed
-    __syncthreads();
-
-    const Tile t = tile_at(b + per_rb, nx_pad, tb);
+  int i = 0;
+  for (int b = blockIdx.x; b < n_tiles; b += gridDim.x, ++i) {
+    const Tile t = ring_tile(b + per_rb, nx_pad, tb, kRows);
     const int kmax = block_kmax(occ, nb, t.rb - 1);
-    const Stage S = stage_at(ring, st, cap);
-    const long long base = static_cast<long long>(t.row0 - 1) * cap * nx_pad;
-
-    // counts, and the staged rho turned into the EOS pair in place: (p,
-    // 1/rho) with the twin's float operations, (0, 0) past the tile's ring
-    // (K2's)
-    for (int c = threadIdx.x; c < kWinRows * kWinCols; c += kBlock) {
-      const int wr = c / kWinCols;
-      const int wc = c - wr * kWinCols;
-      const bool in = wr < t.rows + 2 && wc < t.cols + 2;
-      int n = 0;
-      for (int kj = 0; kj < kmax; ++kj) {
-        const int i = (wr * kmax + kj) * kWinCols + wc;
-        n += n == kj && S.win[i].x < kHalfFar;
-        const float rg = S.eos[i].x;
-        S.eos[i] = in ? make_float2(k * fmaxf(rg - rho0, 0.0f),
-                                    1.0f / fmaxf(rg, 1.0e-12f))
-                      : make_float2(0.0f, 0.0f);
+    mbar_wait(sm.full, i & 1);
+    repack_force_window<kCons, kW>(t, kmax, nx_pad, sm.stage, win, rho0, k,
+                                   pwin, eos, cnt);
+    const float* RX = sm.stage + kWinFields * win;
+    for (int c = threadIdx.x; c < kRows * kWinCols; c += kCons) {
+      const int tr = c / kWinCols;
+      const int tc = c - tr * kWinCols;
+      if (tr >= t.rows || tc >= t.cols) continue;
+      for (int s = 0; s < kmax; ++s) {
+        // the box starts at col0 - 1
+        const int r = (s * kRows + tr) * kWinCols + tc + 1;
+        refs[(tr * kmax + s) * kWinCols + tc] =
+            make_float2(RX[r], RX[ref + r]);
       }
-      cnt[c] = n;
     }
-    __syncthreads();
-    if (threadIdx.x < 32) list_pairs(t, kmax, cnt, pairs, n_pairs);
-    __syncthreads();
+    consumer_sync(kCons);  // the stage is read: the producer may refill it
+    if (threadIdx.x == 0) mbar_arrive(sm.empty);
+    if (warp == 0)
+      list_region<kRows>(t.rows, t.cols, 1, kRingCols, kmax, cnt, pairs,
+                         n_pairs);
+    consumer_sync(kCons);
 
     // K2's taps, epilogue and displacement
     const int np = *n_pairs;
     const int rs = kmax * kWinCols;  // window row stride
-    for (int p = threadIdx.x; p < np; p += kBlock) {
+    for (int p = threadIdx.x; p < np; p += kCons) {
       const int cell = pairs[p] >> 8;
       const int s = pairs[p] & 255;
-      const int tr = cell / kTileCols;
-      const int tc = cell - tr * kTileCols;
+      const int tr = cell / kRingCols;
+      const int tc = cell - tr * kRingCols;
       const int own_i = (tr + 1) * rs + s * kWinCols + tc + 1;
-      const float4 own = S.win[own_i];
-      const float2 a = tile_accel(S.win, S.eos, tr * rs + tc, rs,
+      const float4 own = pwin[own_i];
+      const float2 a = tile_accel(pwin, eos, tr * rs + tc, rs,
                                   neighbour_counts(cnt, tr, tc).x, own,
-                                  S.eos[own_i].x, fc);
+                                  eos[own_i].x, fc);
       float nx, ny, nvx, nvy;
       const bool live = integrate(own.x, own.y, own.z, own.w, a.x, a.y, ic,
                                   nx, ny, nvx, nvy);
-      const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
+      const long long g =
+          (static_cast<long long>(t.row0 + tr) * cap + s) * nx_pad + t.col0 +
+          tc;
       ox[g] = nx;
       oy[g] = ny;
       ovx[g] = nvx;
       ovy[g] = nvy;
       if (live) {
-        const int r = (tr * kmax + s) * kWinCols + tc;
-        const float drx = nx - S.ref_x[r];
-        const float dry = ny - S.ref_y[r];
+        const float2 r = refs[(tr * kmax + s) * kWinCols + tc];
+        const float drx = nx - r.x;
+        const float dry = ny - r.y;
         d2 = fmaxf(d2, __fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)));
       }
     }
-    // dead slots: x and y as they are, zero velocity
-    for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {
-      if (s >= cnt[(tr + 1) * kWinCols + tc + 1]) {
-        const float4 v = s < kmax
-                             ? S.win[((tr + 1) * kmax + s) * kWinCols + tc + 1]
-                             : make_float4(kFar, kFar, 0.0f, 0.0f);
-        const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
-        ox[g] = v.x;
-        oy[g] = v.y;
-        ovx[g] = 0.0f;
-        ovy[g] = 0.0f;
-      }
-    });
-    __syncthreads();  // the stage is read: the next iteration refills it
+    // dead slots: x and y as they are (FAR past kmax), zero velocity
+    if (lane < t.cols)
+      for (int tr = 0; tr < t.rows; ++tr)
+        for (int s = warp; s < cap; s += kWarps)
+          if (s >= cnt[(tr + 1) * kWinCols + lane + 1]) {
+            const float4 v =
+                s < kmax ? pwin[(tr + 1) * rs + s * kWinCols + lane + 1]
+                         : make_float4(kFar, kFar, 0.0f, 0.0f);
+            const long long g =
+                (static_cast<long long>(t.row0 + tr) * cap + s) * nx_pad +
+                t.col0 + lane;
+            ox[g] = v.x;
+            oy[g] = v.y;
+            ovx[g] = 0.0f;
+            ovy[g] = 0.0f;
+          }
+    consumer_sync(kCons);  // the window and the lists are read
   }
-  cp_async_wait<0>();
-  block_max_atomic(d2, disp_bits);
+  consumer_max_atomic(d2, kWarps, sm.warp_max, disp_bits);
 }
 
-// Blocks per SM x SMs of the current device: the persistent grid.
-cudaError_t grid_size(int smem, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = bgf::allow_smem(dbuf_kernel, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dbuf_kernel,
-                                                        kBlock, smem);
-  *blocks = per_sm * sms;
-  return err;
+// The kernel at cap slots: its shared-memory limit raised to its dynamic
+// shared memory, and the card checked to hold kMinBlocks of its blocks
+// per SM.
+cudaError_t ready(int cap, int* smem) {
+  *smem = dbuf_smem(cap);
+  return bgf::check_blocks(dbuf_kernel, kThreads, *smem, kMinBlocks);
 }
 
 }  // namespace
 
 // The arguments of bgf_forces_integrate's ref-based form (every lane in
-// the displacement max).
+// the displacement max).  Returns 0, a cudaError_t, or bgf::kEncodeError +
+// the driver's CUresult when a tensor map was refused.
 extern "C" int bgf_forces_integrate_dbuf(
     const float* x, const float* y, const float* vx, const float* vy,
     const float* rho, const float* ref_x, const float* ref_y, const int* occ,
@@ -278,30 +265,55 @@ extern "C" int bgf_forces_integrate_dbuf(
     int cap, int nx_pad, int tb, int nb, float h, float m_half,
     float spiky_c, float visc_mc, float rho0, float k, float dt, float x_min,
     float x_max, float bounce, float floor_y, cudaStream_t stream) {
-  const int smem = dbuf_smem(cap);
-  int blocks = 0;
-  cudaError_t err = grid_size(smem, &blocks);
-  if (err == cudaSuccess && blocks < 1) err = cudaErrorInvalidConfiguration;
+  int smem = 0;
+  unsigned blocks = 0;
+  cudaError_t err = ready(cap, &smem);
   if (err == cudaSuccess)
-    err = cudaMemsetAsync(disp, 0, sizeof(float), stream);
+    err = bgf::persistent_grid(
+        kMinBlocks,
+        static_cast<long long>(nb) * ((tb + kRows - 1) / kRows) *
+            bgf::ring_tiles_x(nx_pad),
+        &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = static_cast<int>(bgf::tiles_for(ny_pad, nx_pad, tb));
-  dbuf_kernel<<<blocks < tiles ? blocks : tiles, kBlock, smem, stream>>>(
-      x, y, vx, vy, rho, ref_x, ref_y, occ, ox, oy, ovx, ovy,
-      reinterpret_cast<unsigned int*>(disp), cap, nx_pad, tb, nb,
+  // each plane [ny_pad, cap, nx_pad] as dims {nx_pad, cap, ny_pad}
+  const long long dims[3] = {nx_pad, cap, ny_pad};
+  const long long strides[2] = {4LL * nx_pad, 4LL * cap * nx_pad};
+  const int box[3] = {bgf::kWinCols, 1, kW};
+  const int ref_box[3] = {bgf::kWinCols, 1, kRows};
+  Maps maps;
+  const float* win[kWinFields] = {x, y, vx, vy, rho};
+  const float* ref[kRefFields] = {ref_x, ref_y};
+  for (int f = 0; f < kWinFields; ++f) {
+    const int e = bgf::encode_map_3d(&maps.win[f], win[f], dims, strides, box);
+    if (e != 0) return e;
+  }
+  for (int f = 0; f < kRefFields; ++f) {
+    const int e =
+        bgf::encode_map_3d(&maps.ref[f], ref[f], dims, strides, ref_box);
+    if (e != 0) return e;
+  }
+  err = cudaMemsetAsync(disp, 0, sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dbuf_kernel<<<blocks, kThreads, smem, stream>>>(
+      maps, x, y, occ, ox, oy, ovx, ovy,
+      reinterpret_cast<unsigned int*>(disp), cap, ny_pad, nx_pad, tb, nb,
       bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k,
       bgf::IntegrateConsts{dt, x_min, x_max, bounce, floor_y});
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers, static and dynamic shared memory per block, blocks per SM and
-// spill bytes of the kernel at slot capacity cap, into out[0..4].
+// spill bytes at slot capacity cap, into out[0..4].
 extern "C" int bgf_forces_integrate_dbuf_occupancy(int cap, int* out) {
-  return bgf::report_occupancy(dbuf_kernel, kBlock, dbuf_smem(cap), out);
+  return bgf::report_occupancy(dbuf_kernel, kThreads, dbuf_smem(cap), out);
 }
 
-// The persistent grid the launcher takes at slot capacity cap: blocks per
-// SM x SMs of the current device, into out[0].
+// The persistent grid at slot capacity cap: kMinBlocks x the current
+// device's SMs, into out[0], once the card is checked to hold them.
 extern "C" int bgf_forces_integrate_dbuf_grid(int cap, int* out) {
-  return static_cast<int>(grid_size(dbuf_smem(cap), out));
+  int smem = 0, sms = 0;
+  cudaError_t err = ready(cap, &smem);
+  if (err == cudaSuccess) err = bgf::sm_count(&sms);
+  out[0] = kMinBlocks * sms;
+  return static_cast<int>(err);
 }

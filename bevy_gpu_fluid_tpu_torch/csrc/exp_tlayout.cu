@@ -20,25 +20,42 @@
 // (slot, row) in either layout, so the layout moves the rows of one slot
 // together and nothing else.
 //
-// Design: K1's and K8's halo tile (bgf_common.cuh) with another staging.
-// A slot layer of the window, kWinRows rows x 32 columns, is one box of a
+// T2's design: K1's halo tile (bgf_common.cuh) with another staging.  A
+// slot layer of the window, kWinRows rows x 32 columns, is one box of a
 // plane; each block copies the boxes of its slots below kmax into shared
 // memory with cp.async (bgf_async.cuh: 4-byte copies, the window's first
 // column being unaligned and wrapped), nothing through registers, then
-// counts each window cell's live prefix from shared memory and, for T3,
-// turns the staged rho into (p, 1/rho) in place with the twin's float
-// operations.  The pair listing, the thread per live pair and the dead
-// slots' pass are K1's and K8's.  The window keeps the dense kernels'
-// shared layout, window slot (wr, kj, wc) at (wr * kmax + kj) * kWinCols +
-// wc, in separate arrays per field.
+// counts each window cell's live prefix from shared memory.  The pair
+// listing, the thread per live pair and the dead slots' pass are K1's.
+// The window keeps the dense kernels' shared layout, window slot (wr, kj,
+// wc) at (wr * kmax + kj) * kWinCols + wc, in separate arrays per field.
+//
+// T3's design: the TMA stage of bgf_tma.cuh, as T1's (exp_dbuf.cu).  One
+// tensor map per input plane (x, y, vx, vy, rho), dims {nx_pad, ny_pad,
+// cap}; a tile is 2 x 28 cells from column 1 on (bgf::ring_tile: its
+// window's first column is 16-byte aligned, as a box's must be), a field's
+// window a box {32, rows + 2, 1} per slot below the tile's kmax at
+// (col0 - 1, row0 - 1, slot), so a slot layer of the window is a rectangle
+// of the plane, TMA's best case.  A producer warp's first lane arms the
+// stage's full barrier with the tile's bytes and issues its boxes once the
+// consumers have released the stage (its empty barrier).
+// The consumer warps repack the landed fields into K8's packed window
+// (bgf::repack_force_window: (x, y, vx, vy) and the EOS pair (p, 1/rho),
+// FAR past the plane's last column, which K8 wraps to a ghost column, and
+// the counts), release the stage, list the live pairs, tap in (kj, dy, dx)
+// order two shared loads a tap and write the dead slots +0; ghost column
+// 0, in no tile, gets its zeros with the ghost blocks'.  Six consumer
+// warps and one producer, four blocks per SM (28 resident warps), walking
+// the interior tiles persistently (blocks per SM x SMs blocks; a block per
+// tile measured the same).
 
 #include "bgf_async.cuh"
 #include "bgf_common.cuh"
+#include "bgf_tma.cuh"
 
 namespace {
 
 constexpr int kDensityBlock = 128;          // K1's
-constexpr int kForcesBlock = bgf::kThreads;  // K8's
 
 // Offset of the tile's output slot (tr, s, tc) in a slot-major plane.
 __device__ __forceinline__ long long out_offset(const bgf::Tile& t, int tr,
@@ -174,99 +191,156 @@ __global__ void __launch_bounds__(kDensityBlock)
   });
 }
 
-// Dynamic shared memory of T3: x, y, vx, vy, p and 1/rho windows, the
-// window counts, the pair list and the pair count (K8's bytes).
-int forces_t_smem(int cap) {
-  return bgf::kWinRows * cap * bgf::kWinCols * 4 * 6 +
-         bgf::kWinRows * bgf::kWinCols * 4 + bgf::kTileCells * cap * 4 + 4;
+// ---- T3: the TMA stage on slot-major planes
+
+constexpr int kRows = 2;            // tile rows (x bgf::kRingCols columns)
+constexpr int kW = kRows + 2;       // window rows
+constexpr int kWarps = 6;           // consumer warps (+ one producer warp)
+constexpr int kCons = 32 * kWarps;  // consumer threads
+constexpr int kForceThreads = kCons + 32;
+constexpr int kMinBlocks = 4;       // blocks per SM it is built for
+constexpr int kForceFields = 5;     // x, y, vx, vy, rho
+static_assert(kWarps <= bgf::kMaxWarps, "a warp maximum per consumer warp");
+
+struct ForceMaps {
+  CUtensorMap win[kForceFields];
+};
+
+// Floats of one window field at cap slots.
+__host__ __device__ __forceinline__ int window_floats(int cap) {
+  return kW * cap * bgf::kWinCols;
 }
 
-__global__ void __launch_bounds__(kForcesBlock) forces_t_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const float* __restrict__ rho, const int* __restrict__ occ,
-    float* __restrict__ ax_out, float* __restrict__ ay_out, int cap,
-    int ny_pad, int nx_pad, int tb, int nb, bgf::ForceConsts fc, float rho0,
-    float k) {
+// Dynamic shared memory of T3: the stage of five window fields, then the
+// packed (x, y, vx, vy) and (p, 1/rho) windows, the counts, the pair list
+// and its count (models/exp_kernels.forces_t_plan mirrors it).
+int forces_t_smem(int cap) {
+  const int win = window_floats(cap);
+  return bgf::stage_smem_bytes(
+      kForceFields * win * 4,
+      win * (16 + 8) + kW * bgf::kWinCols * 4 +
+          (kRows * bgf::kRingCols * cap + 1) * 4);
+}
+
+__global__ void __launch_bounds__(kForceThreads, kMinBlocks)
+    forces_t_kernel(__grid_constant__ const ForceMaps maps,
+                    const int* __restrict__ occ, float* __restrict__ ax_out,
+                    float* __restrict__ ay_out, int cap, int ny_pad,
+                    int nx_pad, int tb, int nb, bgf::ForceConsts fc,
+                    float rho0, float k) {
   using namespace bgf;
-  const Tile t = tile_of(nx_pad, tb);
-  if (t.rb == 0 || t.rb == nb + 1) {
-    for_tile_slots<kForcesBlock>(t, cap, [&](int tr, int s, int tc) {
-      const long long g = out_offset(t, tr, s, tc, ny_pad, nx_pad);
-      ax_out[g] = 0.0f;
-      ay_out[g] = 0.0f;
-    });
+  // a landed field's slot (wr, kj, wc) at (kj * kW + wr) * 32 + wc: a box
+  // per slot, a slot layer of the window a rectangle of the plane
+  const int win = window_floats(cap);
+  extern __shared__ unsigned char smem_t[];
+  const StageSmem sm = stage_smem(smem_t, kForceFields * win);
+  stage_init(sm);
+
+  const int per_rb = ((tb + kRows - 1) / kRows) * ring_tiles_x(nx_pad);
+  const int n_tiles = nb * per_rb;  // interior tiles, from row block 1 on
+
+  if (threadIdx.x >= kCons) {  // the producer warp
+    if (threadIdx.x != kCons) return;
+    for (int f = 0; f < kForceFields; ++f) prefetch_tensormap(&maps.win[f]);
+    constexpr uint32_t kSlotBytes = kForceFields * kW * kWinCols * 4;
+    int i = 0;
+    for (int b = blockIdx.x; b < n_tiles; b += gridDim.x, ++i) {
+      mbar_wait(sm.empty, (i & 1) ^ 1);
+      const Tile t = ring_tile(b + per_rb, nx_pad, tb, kRows);
+      const int kmax = block_kmax(occ, nb, t.rb - 1);
+      mbar_arrive_expect_tx(sm.full, kmax * kSlotBytes);
+      for (int j = 0; j < kmax; ++j)
+        for (int f = 0; f < kForceFields; ++f)
+          tma_load_3d(sm.stage + f * win + j * kW * kWinCols, &maps.win[f],
+                      sm.full, t.col0 - 1, t.row0 - 1, j);
+    }
     return;
   }
-  const int w = kWinRows * cap * kWinCols;
-  extern __shared__ float smem_f[];
-  float* wx = smem_f;
-  float* wy = wx + w;
-  float* wvx = wy + w;
-  float* wvy = wvx + w;
-  float* wp = wvy + w;    // rho as staged, then p
-  float* wir = wp + w;    // 1/rho
-  int* cnt = reinterpret_cast<int*>(wir + w);
-  int* pairs = cnt + kWinRows * kWinCols;
-  int* n_pairs = pairs + kTileCells * cap;
 
-  const int kmax = block_kmax(occ, nb, t.rb - 1);
-  stage_boxes<kForcesBlock, 5>(t, kmax, ny_pad, nx_pad, {x, y, vx, vy, rho},
-                               {wx, wy, wvx, wvy, wp},
-                               {kFar, kFar, 0.0f, 0.0f, 0.0f});
-  // counts, and the EOS pair of every staged slot (K8's: (0, 0) past the
-  // tile's ring)
-  for (int c = threadIdx.x; c < kWinRows * kWinCols; c += kForcesBlock) {
-    const int wr = c / kWinCols;
-    const int wc = c - wr * kWinCols;
-    const bool in = wr < t.rows + 2 && wc < t.cols + 2;
-    for (int kj = 0; kj < kmax; ++kj) {
-      const int i = (wr * kmax + kj) * kWinCols + wc;
-      const float rg = wp[i];
-      wp[i] = in ? k * fmaxf(rg - rho0, 0.0f) : 0.0f;
-      wir[i] = in ? 1.0f / fmaxf(rg, 1.0e-12f) : 0.0f;
-    }
-    cnt[c] = live_prefix(wx, c, kmax);
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) list_pairs(t, kmax, cnt, pairs, n_pairs);
-  __syncthreads();
+  float4* pwin = reinterpret_cast<float4*>(sm.tail);
+  float2* eos = reinterpret_cast<float2*>(pwin + win);
+  int* cnt = reinterpret_cast<int*>(eos + win);
+  int* pairs = cnt + kW * kWinCols;
+  int* n_pairs = pairs + kRows * kRingCols * cap;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  const int np = *n_pairs;
-  const int rs = kmax * kWinCols;  // window row stride
-  for (int p = threadIdx.x; p < np; p += kForcesBlock) {
-    const int cell = pairs[p] >> 8;
-    const int s = pairs[p] & 255;
-    const int tr = cell / kTileCols;
-    const int tc = cell - tr * kTileCols;
-    const int own = (tr + 1) * rs + s * kWinCols + tc + 1;
-    const float ox = wx[own], oy = wy[own], ovx = wvx[own], ovy = wvy[own];
-    const float p_i = wp[own];
-    const int kb = neighbour_counts(cnt, tr, tc).x;
-    const int b0 = tr * rs + tc;
-    float ax = 0.0f;
-    float ay = 0.0f;
-    for (int kj = 0; kj < kb; ++kj) {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int j = b0 + dy * rs + kj * kWinCols + dx;
-          add_pair_accel(ox - wx[j], oy - wy[j], p_i + wp[j], wir[j],
-                         wvx[j] - ovx, wvy[j] - ovy, fc, ax, ay);
-        }
+  // zeros, as K8, in the ghost blocks and in ghost column 0 (in no tile;
+  // its slots are dead)
+  const long long ghost = 2LL * tb * nx_pad;  // a slot's ghost elements
+  const long long n_col0 = static_cast<long long>(nb) * tb;  // a slot's
+  for (long long e = static_cast<long long>(blockIdx.x) * kCons + threadIdx.x;
+       e < (ghost + n_col0) * cap;
+       e += static_cast<long long>(gridDim.x) * kCons) {
+    long long g;
+    if (e < ghost * cap) {
+      const long long s = e / ghost;
+      const long long r = e - s * ghost;
+      g = s * ny_pad * nx_pad +
+          (r < tb * nx_pad ? r : r + static_cast<long long>(nb) * tb * nx_pad);
+    } else {
+      const long long q = e - ghost * cap;
+      const long long s = q / n_col0;
+      g = (s * ny_pad + tb + q - s * n_col0) * nx_pad;
     }
-    const long long g = out_offset(t, tr, s, tc, ny_pad, nx_pad);
-    ax_out[g] = ax;
-    ay_out[g] = ay;
+    ax_out[g] = 0.0f;
+    ay_out[g] = 0.0f;
   }
-  for_tile_slots<kForcesBlock>(t, cap, [&](int tr, int s, int tc) {
-    if (s >= cnt[(tr + 1) * kWinCols + tc + 1]) {
+
+  int i = 0;
+  for (int b = blockIdx.x; b < n_tiles; b += gridDim.x, ++i) {
+    const Tile t = ring_tile(b + per_rb, nx_pad, tb, kRows);
+    const int kmax = block_kmax(occ, nb, t.rb - 1);
+    mbar_wait(sm.full, i & 1);
+    repack_force_window<kCons, kW>(t, kmax, nx_pad, sm.stage, win, rho0, k,
+                                   pwin, eos, cnt);
+    consumer_sync(kCons);  // the stage is read: the producer may refill it
+    if (threadIdx.x == 0) mbar_arrive(sm.empty);
+    if (warp == 0)
+      list_region<kRows>(t.rows, t.cols, 1, kRingCols, kmax, cnt, pairs,
+                         n_pairs);
+    consumer_sync(kCons);
+
+    const int np = *n_pairs;
+    const int rs = kmax * kWinCols;  // window row stride
+    for (int p = threadIdx.x; p < np; p += kCons) {
+      const int cell = pairs[p] >> 8;
+      const int s = pairs[p] & 255;
+      const int tr = cell / kRingCols;
+      const int tc = cell - tr * kRingCols;
+      const int own_i = (tr + 1) * rs + s * kWinCols + tc + 1;
+      const float4 own = pwin[own_i];
+      const float p_i = eos[own_i].x;
+      const int kb = neighbour_counts(cnt, tr, tc).x;
+      const int b0 = tr * rs + tc;
+      float ax = 0.0f;
+      float ay = 0.0f;
+      for (int kj = 0; kj < kb; ++kj) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int j = b0 + dy * rs + kj * kWinCols + dx;
+            const float4 w = pwin[j];
+            const float2 e = eos[j];
+            add_pair_accel(own.x - w.x, own.y - w.y, p_i + e.x, e.y,
+                           w.z - own.z, w.w - own.w, fc, ax, ay);
+          }
+      }
       const long long g = out_offset(t, tr, s, tc, ny_pad, nx_pad);
-      ax_out[g] = 0.0f;
-      ay_out[g] = 0.0f;
+      ax_out[g] = ax;
+      ay_out[g] = ay;
     }
-  });
+    if (lane < t.cols)
+      for (int tr = 0; tr < t.rows; ++tr)
+        for (int s = warp; s < cap; s += kWarps)
+          if (s >= cnt[(tr + 1) * kWinCols + lane + 1]) {
+            const long long g = out_offset(t, tr, s, lane, ny_pad, nx_pad);
+            ax_out[g] = 0.0f;
+            ay_out[g] = 0.0f;
+          }
+    consumer_sync(kCons);  // the window and the lists are read
+  }
 }
 
 }  // namespace
@@ -286,6 +360,8 @@ extern "C" int bgf_density_t(const float* x, const float* y, const int* occ,
 }
 
 // Slot-major planes [cap, ny_pad, nx_pad]; the arguments of bgf_forces.
+// Returns 0, a cudaError_t, or bgf::kEncodeError + the driver's CUresult
+// when a tensor map was refused.
 extern "C" int bgf_forces_t(const float* x, const float* y, const float* vx,
                             const float* vy, const float* rho, const int* occ,
                             float* ax, float* ay, int ny_pad, int cap,
@@ -293,13 +369,29 @@ extern "C" int bgf_forces_t(const float* x, const float* y, const float* vx,
                             float spiky_c, float visc_mc, float rho0, float k,
                             cudaStream_t stream) {
   const int smem = forces_t_smem(cap);
-  const cudaError_t err = bgf::allow_smem(forces_t_kernel, smem);
+  unsigned blocks = 0;
+  cudaError_t err =
+      bgf::check_blocks(forces_t_kernel, kForceThreads, smem, kMinBlocks);
+  if (err == cudaSuccess)
+    err = bgf::persistent_grid(
+        kMinBlocks,
+        static_cast<long long>(nb) * ((tb + kRows - 1) / kRows) *
+            bgf::ring_tiles_x(nx_pad),
+        &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  forces_t_kernel<<<bgf::tiles_for(ny_pad, nx_pad, tb), kForcesBlock, smem,
-                    stream>>>(x, y, vx, vy, rho, occ, ax, ay, cap, ny_pad,
-                              nx_pad, tb, nb,
-                              bgf::ForceConsts{h, m_half, spiky_c, visc_mc},
-                              rho0, k);
+  // each plane [cap, ny_pad, nx_pad] as dims {nx_pad, ny_pad, cap}
+  const long long dims[3] = {nx_pad, ny_pad, cap};
+  const long long strides[2] = {4LL * nx_pad, 4LL * ny_pad * nx_pad};
+  const int box[3] = {bgf::kWinCols, kW, 1};
+  ForceMaps maps;
+  const float* src[kForceFields] = {x, y, vx, vy, rho};
+  for (int f = 0; f < kForceFields; ++f) {
+    const int e = bgf::encode_map_3d(&maps.win[f], src[f], dims, strides, box);
+    if (e != 0) return e;
+  }
+  forces_t_kernel<<<blocks, kForceThreads, smem, stream>>>(
+      maps, occ, ax, ay, cap, ny_pad, nx_pad, tb, nb,
+      bgf::ForceConsts{h, m_half, spiky_c, visc_mc}, rho0, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,6 +403,6 @@ extern "C" int bgf_density_t_occupancy(int cap, int* out) {
 }
 
 extern "C" int bgf_forces_t_occupancy(int cap, int* out) {
-  return bgf::report_occupancy(forces_t_kernel, kForcesBlock,
+  return bgf::report_occupancy(forces_t_kernel, kForceThreads,
                                forces_t_smem(cap), out);
 }

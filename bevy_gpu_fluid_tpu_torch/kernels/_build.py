@@ -14,10 +14,13 @@ The library goes to ``bevy_gpu_fluid_tpu_torch/_build/<source hash>/``, so
 an edit to any source builds anew and an unchanged tree reuses the last
 build.  It is loaded with ``ctypes``: every pointer and the stream are
 ``c_void_p``, every size ``c_int``, every physics constant ``c_float``.
-The kernels that stage asynchronously copy with ``cp.async``
-(``csrc/bgf_async.cuh``), an instruction that needs no descriptor: no
-kernel takes a TMA tensor map, so the library links no driver API (no
-``-lcuda``, no ``cudaGetDriverEntryPoint``).
+T1 and T3 (``csrc/exp_dbuf.cu``, ``csrc/exp_tlayout.cu``) copy by TMA
+boxes (``csrc/bgf_tma.cuh``): their entry points encode the tensor maps
+with the driver's ``cuTensorMapEncodeTiled``, which they reach through
+the runtime's ``cudaGetDriverEntryPoint`` (``...ByVersion`` from CUDA
+12.5), so the library still links no ``-lcuda``; a refused map returns
+``100000`` + the driver's ``CUresult``.  T2 copies with ``cp.async``
+(``csrc/bgf_async.cuh``).
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises if that is not 0.  The kernel
 wrappers share ``check_planes`` (device, dtype, shape and contiguity of

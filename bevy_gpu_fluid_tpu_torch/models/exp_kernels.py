@@ -7,16 +7,18 @@ Port of the Pallas kernels of the repo's ``tools/exp_*.py``:
 
 * T1 ``forces_integrate_dbuf_cuda`` (``csrc/exp_dbuf.cu``) replaces
   ``_dbuf_kernel`` / ``make_dbuf`` (tools/exp_dbuf.py:38, :169): K2's
-  ref-based function as a persistent kernel that copies the next tile's
-  window asynchronously while it computes the current one; bitwise K2;
+  ref-based function as a persistent kernel whose producer warp copies the
+  next tile's window by TMA boxes into a shared-memory stage once its
+  consumer warps have repacked the current one, while they compute it;
+  bitwise K2;
 * T2 ``density_t_cuda`` (``csrc/exp_tlayout.cu``) replaces
   ``_density_kernel_t`` / ``density_t`` (tools/exp_tlayout.py:37, :182):
   K1 on SLOT-MAJOR planes ``[cap, ny_pad, nx_pad]``, taps in (kj, dx, dy)
   order; bitwise K1 after ``movedim``;
 * T3 ``forces_t_cuda`` (``csrc/exp_tlayout.cu``) replaces
   ``_forces_kernel_t`` / ``forces_t`` (tools/exp_tlayout.py:84, :158): K8
-  on slot-major planes, taps in (kj, dy, dx) order, so it rounds
-  differently from K8;
+  on slot-major planes, staged by the same TMA stage, taps in (kj, dy, dx)
+  order, so it rounds differently from K8;
 * T4 ``forces_variant_cuda`` (``csrc/exp_forces.cu``) replaces
   ``_forces_kernel_v`` / ``make_forces`` (tools/exp_forces.py:47, :235):
   K8 in the five arithmetic variants of ``VARIANTS`` (v0 is K8's own
@@ -32,10 +34,24 @@ production wrappers, each wrapper computes with its twin on a CPU tensor
 and launches its kernel (counting the launch) or raises on a CUDA one.
 The twins repeat the TPU kernels' float operations in their order; the
 kernels differ from them by FMA contraction only.
+
+T1 and T3 lay out their TMA stage on the C side; ``dbuf_plan`` and
+``forces_t_plan`` mirror that layout (a ``TmaPlan``) for the CPU tests to
+pin on every plane shape the repo runs, and a card test holds the mirror
+to the C side's shared memory and blocks per SM.  Each plane is a 3D
+tensor for the copy engine (dims innermost first, byte strides of the
+outer two), a field's window one box per slot of 32 columns (128 bytes; a
+tile is 28 columns from column 1 on, so the box starts 16-byte aligned, as
+TMA needs) x the tile's rows + 2; the stage holds every field's window of
+one tile at ``cap`` slots, and the kernel repacks it into the packed
+window its taps read.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import numpy as np
 import torch
 
@@ -94,6 +110,151 @@ def _row_bound_t(occ, grid: GridSpec2D) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The TMA stage of T1 and T3: the layout the C side lays out, mirrored
+# ---------------------------------------------------------------------------
+
+SM_SMEM = 233_472       # shared memory of one H100 SM (228 KB)
+BLOCK_SMEM = 232_448    # the most one block may take (227 KB)
+SMEM_RESERVED = 1_024   # the runtime's reserve per resident block
+SM_WARPS = 64           # warps one SM holds
+TMA_BOX_MAX = 256       # elements a box spans in one dimension, at most
+TX_MAX = (1 << 20) - 1  # bytes one mbarrier phase may expect
+WIN_COLS = 32           # a window's columns, a box's inner extent
+RING_COLS = 28          # tile columns (bgf::kRingCols): tiles start at
+                        # column 1, so a window's first column, col0 - 1,
+                        # is 16-byte aligned, as a box's must be
+SMEM_ALIGN, HEADER_BYTES = 128, 256   # csrc/bgf_tma.cuh
+# (tile rows, consumer warps, blocks per SM) of csrc/exp_dbuf.cu and of
+# csrc/exp_tlayout.cu's T3 (kRows, kWarps, kMinBlocks)
+DBUF_SHAPE = (4, 11, 2)
+FORCES_T_SHAPE = (2, 6, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaPlan:
+    """The layout of a T1 or T3 launch, as its C entry point lays it
+    out."""
+    kernel: str         # "dbuf" (T1) or "forces_t" (T3)
+    rows: int           # tile rows (x 28 columns, + a one-cell ring)
+    warps: int          # consumer warps (+ one producer warp)
+    blocks_per_sm: int  # the blocks it is built for (__launch_bounds__)
+    stage_bytes: int    # every field's window of one tile at cap slots
+    smem_bytes: int     # the block's dynamic shared memory
+    dims: tuple         # a plane's dims, innermost first (elements)
+    strides: tuple      # bytes of one step along dims 1 and 2
+    box: tuple          # a field's window box (one slot), innermost first
+    ref_box: tuple      # the references' box (T1), else zeros
+    fields: int         # planes staged by the window box
+    ref_fields: int     # planes staged by the references' box
+
+    @property
+    def resident_warps(self) -> int:
+        """Warps per SM at the blocks per SM it is built for."""
+        return self.blocks_per_sm * (self.warps + 1)
+
+    @property
+    def box_bytes(self) -> int:
+        return 4 * int(np.prod(self.box))
+
+    @property
+    def ref_box_bytes(self) -> int:
+        return 4 * int(np.prod(self.ref_box))
+
+    def tile_bytes(self, kmax: int) -> int:
+        """Bytes the producer stages for a tile of slot bound ``kmax``: a
+        box per field and slot below it."""
+        return kmax * (self.fields * self.box_bytes
+                       + self.ref_fields * self.ref_box_bytes)
+
+
+def _plan(kernel: str, shape3: tuple, cap: int, dims: tuple,
+          strides: tuple, box_of, fields: int, ref_fields: int) -> TmaPlan:
+    rows, warps, blocks = shape3
+    box = box_of(rows + 2)
+    ref_box = box_of(rows) if ref_fields else (0, 0, 0)
+    win = (rows + 2) * cap * WIN_COLS
+    stage = (fields * win + ref_fields * rows * cap * WIN_COLS) * 4
+    # after the stage: the packed (x, y, vx, vy) and (p, 1/rho) windows,
+    # T1's (ref_x, ref_y) tile, the window counts, the pair list and its
+    # count
+    tail = (win * (16 + 8) + (rows * cap * WIN_COLS * 8 if ref_fields
+                              else 0)
+            + (rows + 2) * WIN_COLS * 4 + (rows * RING_COLS * cap + 1) * 4)
+    plan = TmaPlan(kernel, rows, warps, blocks, stage,
+                   SMEM_ALIGN + HEADER_BYTES + stage + tail, dims, strides,
+                   box, ref_box, fields, ref_fields)
+    broken = tma_rules(plan)
+    if broken:
+        raise ValueError(f"{kernel} at {dims}: {broken}")
+    return plan
+
+
+def tma_rules(plan: TmaPlan) -> list:
+    """The rules a plan breaks (none: []): TMA's (global strides multiples
+    of 16 bytes below 2^40, dims below 2^32, box extents 1..256, the inner
+    box 128 bytes), the stage's bytes within one mbarrier phase, and the
+    blocks per SM within an SM's shared memory and warps."""
+    broken = []
+    if any(s % 16 or s >= 1 << 40 for s in plan.strides):
+        broken.append(f"strides {plan.strides}")
+    if any(not 0 < d < 1 << 32 for d in plan.dims):
+        broken.append(f"dims {plan.dims}")
+    for box in (plan.box, plan.ref_box) if plan.ref_fields else (plan.box,):
+        if any(not 1 <= b <= TMA_BOX_MAX for b in box) or box[0] * 4 != 128:
+            broken.append(f"box {box}")
+    if plan.stage_bytes > TX_MAX:
+        broken.append(f"stage {plan.stage_bytes} bytes")
+    if (plan.smem_bytes > BLOCK_SMEM or plan.blocks_per_sm
+            * (plan.smem_bytes + SMEM_RESERVED) > SM_SMEM):
+        broken.append(f"{plan.blocks_per_sm} blocks of {plan.smem_bytes} "
+                      f"bytes")
+    if plan.resident_warps > SM_WARPS:
+        broken.append(f"{plan.resident_warps} warps")
+    return broken
+
+
+@functools.lru_cache(maxsize=64)
+def dbuf_plan(shape) -> TmaPlan:
+    """T1's layout on dense planes ``shape`` = [ny_pad, cap, nx_pad]: each
+    plane dims {nx_pad, cap, ny_pad}; the window box {32, 1, rows + 2}, the
+    references' {32, 1, rows}; the stage holds the x, y, vx, vy, rho
+    windows and the two reference tiles at cap slots."""
+    ny_pad, cap, nx_pad = (int(v) for v in shape)
+    return _plan("dbuf", DBUF_SHAPE, cap, (nx_pad, cap, ny_pad),
+                 (4 * nx_pad, 4 * cap * nx_pad),
+                 lambda rows: (WIN_COLS, 1, rows), 5, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def forces_t_plan(shape) -> TmaPlan:
+    """T3's layout on the slot-major planes of dense ``shape`` = [ny_pad,
+    cap, nx_pad]: each plane dims {nx_pad, ny_pad, cap}; the window box
+    {32, rows + 2, 1}; the stage holds the x, y, vx, vy, rho windows at cap
+    slots."""
+    ny_pad, cap, nx_pad = (int(v) for v in shape)
+    return _plan("forces_t", FORCES_T_SHAPE, cap, (nx_pad, ny_pad, cap),
+                 (4 * nx_pad, 4 * ny_pad * nx_pad),
+                 lambda rows: (WIN_COLS, rows, 1), 5, 0)
+
+
+def _check_aligned(**planes) -> None:
+    """Each plane starts 16-byte aligned, as a tensor map's base must (an
+    offset view may not)."""
+    for name, t in planes.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a TMA plane starts 16-byte aligned")
+
+
+def plan_occupancy(plan: TmaPlan) -> dict:
+    """``_build.occupancy`` of the plan's kernel on the current device, with
+    the warps per SM its blocks hold (``resident_warps``)."""
+    name = {"dbuf": "forces_integrate_dbuf", "forces_t": "forces_t"}
+    cap = plan.dims[1] if plan.kernel == "dbuf" else plan.dims[2]
+    o = _build.occupancy(name[plan.kernel], cap)
+    return dict(o, resident_warps=o["blocks_per_sm"] * (plan.warps + 1))
+
+
+# ---------------------------------------------------------------------------
 # T1: K2's ref-based step, persistent, staging ahead
 # ---------------------------------------------------------------------------
 
@@ -115,8 +276,10 @@ def forces_integrate_dbuf_cuda(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd,
     persistent kernel T1 (``csrc/exp_dbuf.cu``); the contract of
     ``cuda_solver.forces_integrate_cuda``'s ref-based form (every lane in
     the max).  ``launches`` counts the launches."""
-    dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
-                              rho_d=rho_d, ref_xd=ref_xd, ref_yd=ref_yd)
+    planes = dict(xd=xd, yd=yd, vxd=vxd, vyd=vyd, rho_d=rho_d,
+                  ref_xd=ref_xd, ref_yd=ref_yd)
+    dev = _build.check_planes(grid, occ, **planes)
+    _check_aligned(**planes)
     if dev.type == "cpu":
         return forces_integrate_dbuf_torch(xd, yd, vxd, vyd, rho_d, ref_xd,
                                            ref_yd, params, cfg, grid, occ)
@@ -142,8 +305,9 @@ forces_integrate_dbuf_cuda.launches = 0
 
 def dbuf_grid(cap: int) -> int:
     """The blocks T1 launches at slot capacity ``cap`` on the current
-    device: blocks per SM x SMs (fewer only on a grid of fewer tiles)."""
-    import ctypes
+    device: its blocks per SM x SMs, once the card is found to hold them
+    (fewer only on a grid of fewer tiles).  The blocks do not depend on the
+    planes' other two dims."""
     out = (ctypes.c_int * 1)()
     rc = _build.load().bgf_forces_integrate_dbuf_grid(cap, out)
     if rc != 0:
@@ -211,8 +375,10 @@ def forces_t_cuda(xt, yt, vxt, vyt, rhot, params: FluidParams,
     T3); ``occ`` is ``block_kmax3_t(xt, grid)``.  Returns new slot-major
     (ax_t, ay_t), dead slots and ghost blocks +0.  ``launches`` counts the
     launches."""
+    planes = dict(xt=xt, yt=yt, vxt=vxt, vyt=vyt, rhot=rhot)
     dev = _build.check_planes(grid, occ, shape=slot_major_shape(grid),
-                              xt=xt, yt=yt, vxt=vxt, vyt=vyt, rhot=rhot)
+                              **planes)
+    _check_aligned(**planes)
     if dev.type == "cpu":
         return forces_t_torch(xt, yt, vxt, vyt, rhot, params, grid, occ)
     c = _forces_consts(params)

@@ -232,7 +232,11 @@ with the validator — then checks them:
     fewer a tap), registers, shared memory and blocks per SM (T1's
     persistent grid too): the kernel table's ``forces_integrate_dbuf``,
     ``density_t``, ``forces_t`` and ``forces_variant_*`` rows, their 96M
-    numbers under ``*_96m`` keys.
+    numbers under ``*_96m`` keys.  T1 and T3 (TMA stages) also print
+    their resident warps per SM (held to their layout's), stage bytes, the
+    bytes staged a launch and the bytes the function must move (below
+    each row's slot bound, every output slot written; its bound may not
+    exceed the measured time); no spill in any kernel of the phase.
     ``python3 chip_smoke.py 20`` runs phase 20 alone and prints no result
     line.
 21. the port's bench (``bevy_gpu_fluid_tpu_torch/tools/bench.py``,
@@ -3829,6 +3833,30 @@ EXP_SOURCES = {        # phase 20's kernels: (source, the TPU kernel)
 }
 
 
+def tma_need(plan, occ, grid) -> float:
+    """Bytes the function of a TMA-staged kernel must move on these planes:
+    its window planes below each row's slot bound (``read_slots``), T1's
+    references below its own rows' bounds, every slot of its outputs
+    written (T1 four planes, T3 two), and occ."""
+    per_row = row_bounds(occ.amax(dim=0), grid)
+    tb = grid.row_block
+    win = read_slots(per_row, tb, tb + grid.n_row_blocks * tb)
+    reads = plan.fields * win + plan.ref_fields * float(per_row.sum())
+    outs = 4 if plan.kernel == "dbuf" else 2
+    return (4.0 * grid.nx_pad * reads + outs * 4.0 * grid.ny_pad * grid.cap
+            * grid.nx_pad + 4.0 * occ.numel())
+
+
+def tma_staged(plan, occ, grid) -> float:
+    """Bytes the producer of the plan's kernel stages in one launch: each
+    interior tile's boxes at its row block's slot bound."""
+    from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
+    tiles = (-(-grid.row_block // plan.rows)) * (-(-(grid.nx_pad - 1)
+                                                   // ek.RING_COLS))
+    return float(tiles * sum(plan.tile_bytes(k)
+                             for k in occ.amax(dim=0).tolist()))
+
+
 def exp_rows(n: int, full: bool, card: str) -> dict:
     """Phase 20's kernel rows at ~``n`` particles: T1 and T4 on the
     exp_dbuf / exp_forces scene (the dam break after 300 Session steps,
@@ -3885,15 +3913,20 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
               f"T1 vs its twin: {pos_err} {vel_err} {d_err}")
         err = max(pos_err, vel_err, d_err)
         del want
-    del got, prod
+    del got
+    plan = ek.dbuf_plan(grid.plane_shape)
     rows["forces_integrate_dbuf"] = dict(
         max_abs_err=err, ms=timed(t1, "dbuf_kernel"),
         prod="forces_integrate",
         prod_ms=timed(k2, "forces_integrate_kernel"),
         plain_ms=(cuda_ms(lambda: ek.forces_integrate_dbuf_torch(*fargs), 3)
                   if twins else None),
+        stage_bytes=plan.stage_bytes,
+        staged_bytes=tma_staged(plan, s.occ, grid),
+        need_bytes=tma_need(plan, s.occ, grid),
         **bound(11 * plane_b + occ_b + 4,
                 need_taps * FORCE_OPS + n_live * 20))
+    del prod
 
     # T4's variants against K8
     f8 = (s.xd, s.yd, s.vxd, s.vyd, rho0, params, grid, s.occ)
@@ -3971,9 +4004,13 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
     d = max(float((ek.from_slot_major(a) - b).abs().max())
             for a, b in zip(a_t, a8))
     check(d <= 1e-5 * a_scale, f"T3 vs K8: {d} of {a_scale}")
+    dead_t = xt >= 5e8
+    check(all(bits_equal(a[dead_t], torch.zeros_like(a[dead_t]))
+              for a in a_t), "T3's dead slots not +0")
     err = None
     if twins:
         err = k8_check(a_t, ek.forces_t_torch(*targs), xt, "T3")[0]
+    plan = ek.forces_t_plan(grid.plane_shape)
     rows["forces_t"] = dict(
         max_abs_err=err, vs_prod=d, ms=timed(t3, "forces_t_kernel"),
         prod="forces",
@@ -3981,6 +4018,9 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
                       "forces_kernel"),
         plain_ms=(cuda_ms(lambda: ek.forces_t_torch(*targs), 3)
                   if twins else None),
+        stage_bytes=plan.stage_bytes,
+        staged_bytes=tma_staged(plan, s.occ, grid),
+        need_bytes=tma_need(plan, s.occ, grid),
         **bound_k8(s.xd, s.occ, grid))
     for name, r in rows.items():
         r.update(ratio=r["ms"] / r["prod_ms"],
@@ -3993,6 +4033,17 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({r['bound_ms'] / r['ms']:.0%} of it); max err vs its twin "
               f"{r['max_abs_err']}; on {card}", flush=True)
+        if "need_bytes" not in r:
+            continue
+        # the bytes the function must move: no faster than they allow
+        r["bound_need_ms"] = r["need_bytes"] / HBM_BYTES_PER_MS
+        print(f"#     {name}: stage {r['stage_bytes']} bytes, staged "
+              f"{r['staged_bytes']:.0f} bytes a launch against "
+              f"{r['need_bytes']:.0f} the function must move (bound "
+              f"{r['bound_need_ms']:.4f} ms, {r['bound_need_ms'] / r['ms']:.0%}"
+              f" of it; whole planes {r['bound_bytes']:.0f})", flush=True)
+        check(r["bound_need_ms"] <= r["ms"],
+              f"{name} faster than the bytes it must move allow: {r}")
     return rows
 
 
@@ -4020,10 +4071,12 @@ def kernel_experiments(kernels: list, card: str) -> None:
                                      r"registers|stack|spill", line):
             print(f"#   ptxas: {entry.split()[-3]} {line.strip()}")
     cap = 8
-    occ = {"forces_integrate_dbuf": _build.occupancy(
-               "forces_integrate_dbuf", cap),
+    plans = {"forces_integrate_dbuf": ek.dbuf_plan((600, cap, 640)),
+             "forces_t": ek.forces_t_plan((696, cap, 640))}
+    occ = {"forces_integrate_dbuf": ek.plan_occupancy(
+               plans["forces_integrate_dbuf"]),
            "density_t": _build.occupancy("density_t", cap),
-           "forces_t": _build.occupancy("forces_t", cap),
+           "forces_t": ek.plan_occupancy(plans["forces_t"]),
            **{f"forces_variant_{v}": _build.occupancy("forces_variant", cap,
                                                       i)
               for i, v in enumerate(ek.VARIANTS)}}
@@ -4032,6 +4085,17 @@ def kernel_experiments(kernels: list, card: str) -> None:
               f"shared memory bytes per block, blocks per SM)", flush=True)
         check(o["local_bytes"] == 0 and o["blocks_per_sm"] >= 1,
               f"{name}: {o}")
+    for name, p in plans.items():
+        o = occ[name]
+        print(f"#   {name}: {p.rows}-row tiles, {p.warps} consumer warps + 1 "
+              f"producer, a stage of {p.stage_bytes} bytes, box {p.box}, "
+              f"{o['blocks_per_sm']} blocks = {o['resident_warps']} "
+              f"resident warps per SM (built for {p.resident_warps})",
+              flush=True)
+        check(o["blocks_per_sm"] >= p.blocks_per_sm
+              and o["dynamic_smem"] == p.smem_bytes,
+              f"{name}: the card holds fewer blocks than built for, or "
+              f"another layout: {o} against {p}")
     print(f"#   forces_integrate_dbuf launches {ek.dbuf_grid(cap)} "
           f"persistent blocks", flush=True)
 
@@ -4067,7 +4131,13 @@ def kernel_experiments(kernels: list, card: str) -> None:
             launches_96m=launches[EXP_N[-1]][name], ms_96m=big["ms"],
             prod_ms_96m=big["prod_ms"], ratio_96m=big["ratio"],
             bound_ms_96m=big["bound_ms"], bound_by_96m=big["bound_by"],
-            grid_96m=big["grid"]))
+            grid_96m=big["grid"],
+            **({} if "need_bytes" not in r else dict(
+                stage_bytes=r["stage_bytes"],
+                staged_bytes=r["staged_bytes"], need_bytes=r["need_bytes"],
+                bound_need_ms=r["bound_need_ms"],
+                staged_bytes_96m=big["staged_bytes"],
+                bound_need_ms_96m=big["bound_need_ms"]))))
     print(f"# phase 20: {time.perf_counter() - t_phase:.1f} s on {card}",
           flush=True)
 

@@ -16,9 +16,9 @@ its dead slots bitwise (+0); K2 refless bitwise K2 with the old positions
 as the reference (and within K2's tolerances of its twin), K1 with
 ``out=`` bitwise without it.  The kernel experiments (T1-T4) at their
 production counterparts' gates against their twins: T1 as K2 and bitwise
-K2, T2 as K1 and bitwise K1 after ``movedim``, T3 and T4 as K8, T4's v0
-bitwise K8 and v3 bitwise v2, T3 and T4's v1 and v2 within K8's gate of
-K8.  The kernels contract multiply-adds into FMAs
+K2, T2 as K1 and bitwise K1 after ``movedim``, T3 and T4 as K8 (T1's and
+T3's TMA layouts as ``exp_kernels`` mirrors them), T4's v0 bitwise K8 and v3 bitwise v2, T3 and T4's v1 and v2 within K8's
+gate of K8.  The kernels contract multiply-adds into FMAs
 and use the hardware rsqrt; the twins round every operation.  The planar
 Session is bitwise the fused one (both rebins route the same values); the
 generator init, the segmented driver and a restored Session are bitwise
@@ -1027,18 +1027,28 @@ def test_interactive_selfdrive_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The kernel experiments (models/exp_kernels.py) on the kicked block and on
-# the crowded ragged grid
+# The kernel experiments (models/exp_kernels.py) on the kicked block, on
+# the crowded ragged grid and on the grid crowded at both edges
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(params=["moving", "crowded"])
+@pytest.fixture(scope="module")
+def edges(cuda):
+    """torch_scenes.edges_scene on the card: a row block at kmax = cap,
+    live particles in column 1 beside the ghost column whose neighbour the
+    first tile's window reaches through the wrap, and a short last tile
+    (tests/test_torch_exp.py checks these premises on the CPU)."""
+    from torch_scenes import edges_scene
+    return edges_scene(cuda)
+
+
+@pytest.fixture(params=["moving", "crowded", "edges"])
 def exp_scene(request):
-    """(sim, grid, cfg, rho): the kicked block's planes or the crowded
-    ragged grid's, and K1's density of them."""
+    """(sim, grid, cfg, rho): the kicked block's planes, the crowded ragged
+    grid's or the edges scene's, and K1's density of them."""
     if request.param == "moving":
         s, grid, cfg = request.getfixturevalue("moving_sim"), GRID, CFG
     else:
-        s, grid, cfg = request.getfixturevalue("crowded")
+        s, grid, cfg = request.getfixturevalue(request.param)
     return s, grid, cfg, cuda_solver.density_cuda(s.xd, s.yd, PARAMS, grid,
                                                   s.occ)
 
@@ -1071,11 +1081,25 @@ def test_dbuf_kernel_bitwise_k2(exp_scene):
 
 
 def test_dbuf_kernel_persistent_grid(cuda):
-    from bevy_gpu_fluid_tpu_torch.kernels import _build
-    occ = _build.occupancy("forces_integrate_dbuf", 8)
+    """T1's grid is its blocks per SM x SMs, and the card holds them."""
+    plan = ek.dbuf_plan((696, 8, 640))
+    occ = ek.plan_occupancy(plan)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0
-    assert ek.dbuf_grid(8) == occ["blocks_per_sm"] * sms
+    assert occ["blocks_per_sm"] >= plan.blocks_per_sm
+    assert ek.dbuf_grid(8) == plan.blocks_per_sm * sms
+
+
+@pytest.mark.parametrize("kernel", ["dbuf", "forces_t"])
+def test_tma_plan_matches_the_kernel(cuda, kernel):
+    """The layout ``exp_kernels`` mirrors is the C side's: its dynamic
+    shared memory, at least its blocks per SM on the card, no spill."""
+    plan_of = ek.dbuf_plan if kernel == "dbuf" else ek.forces_t_plan
+    plan = plan_of((696, 8, 640))
+    occ = ek.plan_occupancy(plan)
+    assert occ["dynamic_smem"] == plan.smem_bytes
+    assert occ["blocks_per_sm"] >= plan.blocks_per_sm
+    assert occ["resident_warps"] >= plan.resident_warps
+    assert occ["local_bytes"] == 0
 
 
 def test_density_t_kernel_bitwise_k1(exp_scene):

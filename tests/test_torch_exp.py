@@ -13,6 +13,13 @@ off the TPU itself, ``exp_dbuf`` and ``exp_forces`` hard-code
 sets it.  Importing a reference tool points JAX's compilation cache at the
 tool's own directory; the module puts back the setting it found.
 
+T1's and T3's TMA layouts (``dbuf_plan``, ``forces_t_plan``: the mirror
+of what their C entry points lay out) are pinned on every plane shape the
+repo runs against TMA's rules and the SM they are built for; the edges scene
+(``torch_scenes.edges_scene``, shared with the card tests) is checked for
+the premises its card tests rely on, and the twins against the reference
+kernels on it.
+
 Tolerances, and why (the production counterparts' gates):
 * T1 against ``make_dbuf``: x, y 1e-6 absolute, vx, vy 1e-4 of max |v|,
   the displacement max 1e-4 relative (K2's twin against
@@ -23,6 +30,7 @@ Tolerances, and why (the production counterparts' gates):
   are all the TPU kernels write.
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -42,6 +50,8 @@ from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as tvs
 from bevy_gpu_fluid_tpu_torch.tools import exp_dbuf, exp_forces, exp_tlayout
+from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
+from torch_scenes import EDGES_GRID, edges_scene
 
 torch.set_num_threads(1)
 
@@ -260,6 +270,200 @@ def test_wrappers_check_planes_and_count_only_launches(scene, slot_major):
     assert {"forces_integrate_dbuf", "density_t", "forces_t",
             *(f"forces_variant_{v}" for v in ek.VARIANTS)} \
         <= set(before)
+
+
+# ------------------------------------------------------------- T1, T3 plans
+
+def _shape(n, skin):
+    return tools.dam_break(n, "cpu", skin, state=False).grid.plane_shape
+
+
+# Every plane shape the repo runs T1 and T3 on, or a production
+# counterpart of theirs: the tools' 1M scenes (T1/T4 at skin 1.75, T2/T3 at
+# 1.5), bench_scale's 96M at both skins, the memory ceiling, the bench's
+# sweep (10k, 100k), a D = 2 slab, the card tests' two scenes.
+PLANE_SHAPES = {
+    "1m_skin1.5": ((696, 8, 640), lambda: _shape(1_000_000, 1.5)),
+    "1m_skin1.75": ((600, 8, 640), lambda: _shape(1_000_000, 1.75)),
+    "96m_skin1.75": (None, lambda: _shape(96_000_000, 1.75)),
+    "96m_skin1.5": (None, lambda: _shape(96_000_000, 1.5)),
+    "ceiling": ((15628, 8, 14336), None),
+    "10k": ((96, 8, 128), lambda: _shape(10_000, 1.75)),
+    "100k": ((216, 8, 256), lambda: _shape(100_000, 1.75)),
+    "slab_d2": ((696, 8, 384), None),
+    "moving": (None, lambda: tvs.default_grid(0.045, -1.0, 2.5,
+                                              y_max=6.0).plane_shape),
+    "edges": ((42, 8, 128), lambda: EDGES_GRID.plane_shape),
+}
+
+
+PLANS = {"dbuf": ek.dbuf_plan, "forces_t": ek.forces_t_plan}
+
+
+@pytest.mark.parametrize("shape_name", list(PLANE_SHAPES))
+@pytest.mark.parametrize("kernel", list(PLANS))
+def test_tma_plan_on_every_plane_shape(kernel, shape_name):
+    """Each kernel's layout: TMA's rules (strides multiples of 16 bytes,
+    box extents <= 256, the inner box 128 bytes), the tensor's dims and
+    strides for the layout, the stage's bytes, and a stage that fits the
+    blocks per SM the kernel is built for (shared memory and warps; T1
+    keeps at least 24 warps resident)."""
+    want, made = PLANE_SHAPES[shape_name]
+    shape = tuple(made()) if made else want
+    assert want is None or shape == want
+    ny_pad, cap, nx_pad = shape
+    plan = PLANS[kernel](shape)
+    assert ek.tma_rules(plan) == []
+    assert all(s % 16 == 0 for s in plan.strides)
+    boxes = [plan.box, plan.ref_box] if kernel == "dbuf" else [plan.box]
+    for box in boxes:
+        assert all(1 <= b <= 256 for b in box) and box[0] * 4 == 128
+    win = (plan.rows + 2) * cap * 32 * 4
+    if kernel == "dbuf":
+        assert plan.dims == (nx_pad, cap, ny_pad)
+        assert plan.strides == (4 * nx_pad, 4 * cap * nx_pad)
+        assert plan.box == (32, 1, plan.rows + 2)
+        assert plan.ref_box == (32, 1, plan.rows)
+        assert plan.stage_bytes == 5 * win + 2 * plan.rows * cap * 128
+        assert plan.resident_warps >= 24
+    else:
+        assert plan.dims == (nx_pad, ny_pad, cap)
+        assert plan.strides == (4 * nx_pad, 4 * ny_pad * nx_pad)
+        assert plan.box == (32, plan.rows + 2, 1)
+        assert plan.ref_box == (0, 0, 0)
+        assert plan.stage_bytes == 5 * win
+    # the stage, and the packed window (24 bytes a slot) after it
+    assert plan.smem_bytes >= plan.stage_bytes + 6 * win
+    assert plan.smem_bytes <= ek.BLOCK_SMEM
+    assert plan.blocks_per_sm * (plan.smem_bytes + ek.SMEM_RESERVED) \
+        <= ek.SM_SMEM
+    assert plan.resident_warps <= ek.SM_WARPS
+    assert plan.stage_bytes <= ek.TX_MAX
+
+
+@pytest.mark.parametrize("kernel", list(PLANS))
+def test_tma_plan_stages_what_the_slots_need(kernel):
+    """A box per field and slot stages kmax slot layers of every field,
+    nothing at kmax 0, and all of them fit the stage; the rules refuse a
+    box past TMA's extents, strides off 16 bytes, a stage past one
+    barrier phase and blocks past an SM's shared memory."""
+    shape = (696, 8, 640)
+    plan = PLANS[kernel](shape)
+    rows = plan.rows
+    per_slot = 5 * (rows + 2) * 128 + (2 * rows * 128 if kernel == "dbuf"
+                                       else 0)
+    for kmax in range(9):
+        assert plan.tile_bytes(kmax) == kmax * per_slot
+    assert plan.tile_bytes(8) == plan.stage_bytes
+    for bad in (dict(box=(32, 1, 300)), dict(box=(16, 1, 4)),
+                dict(strides=(4 * 641, 4 * 8 * 640)),
+                dict(stage_bytes=ek.TX_MAX + 1), dict(blocks_per_sm=16)):
+        assert ek.tma_rules(dataclasses.replace(plan, **bad))
+
+
+def test_tma_wrappers_refuse_offset_views(scene, slot_major):
+    """A plane that starts off TMA's 16-byte alignment (an offset view),
+    and a plane that is not contiguous, are refused before any launch."""
+    sim, sc, rho = scene["sim"], scene["sc"], scene["rho"]
+    planes = [sim.xd, sim.yd, sim.vxd, sim.vyd, rho, sim.ref_xd, sim.ref_yd]
+    flat = torch.empty(sim.xd.numel() + 1, dtype=torch.float32)
+    shifted = flat[1:].view(sim.xd.shape)
+    shifted.copy_(sim.xd)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        ek.forces_integrate_dbuf_cuda(shifted, *planes[1:], sc.params,
+                                      sc.cfg, sc.grid, sim.occ)
+    xt, yt, occ_t = slot_major
+    vxt, vyt = ek.to_slot_major(sim.vxd), ek.to_slot_major(sim.vyd)
+    rhot = ek.to_slot_major(rho)
+    flat_t = torch.empty(xt.numel() + 1, dtype=torch.float32)
+    shifted_t = flat_t[1:].view(xt.shape)
+    shifted_t.copy_(xt)
+    with pytest.raises(ValueError, match="aligned"):
+        ek.forces_t_cuda(shifted_t, yt, vxt, vyt, rhot, sc.params, sc.grid,
+                         occ_t)
+    with pytest.raises(ValueError):    # not contiguous
+        ek.forces_t_cuda(xt.transpose(1, 2).contiguous().transpose(1, 2),
+                         yt, vxt, vyt, rhot, sc.params, sc.grid, occ_t)
+
+
+@pytest.fixture(scope="module")
+def edges():
+    return edges_scene("cpu")
+
+
+def test_edges_scene_premises(edges):
+    """What the card tests of T1 and T3 on this scene rely on: a row block
+    whose slot bound is cap, live particles in column 1 beside the ghost
+    column 0 (and in the last tile, which is short: nx_pad 128 is no
+    multiple of 30), FAR in every ghost column (what the TMA kernels patch
+    the columns past the plane's edge to), live slots a prefix of each
+    cell, dead slots FAR with v = 0, occ bounding every cell."""
+    sim, grid, _ = edges
+    assert grid.nx_pad % 30 != 0 and grid.row_block % 2 and \
+        grid.row_block % 4
+    assert int(sim.occ.max()) == grid.cap
+    live = sim.xd < 5e8
+    assert bool(live[:, :, 1].any())
+    assert int(live[:, 0].sum(dim=0).nonzero().max()) >= \
+        grid.nx_pad - grid.nx_pad % 30
+    for col in (0, grid.nx + 1, grid.nx_pad - 1):
+        assert bool((sim.xd[:, :, col] == FAR).all())
+    prefix = live.cummin(dim=1).values
+    assert torch.equal(prefix, live)
+    dead = ~live
+    assert bool((sim.vxd[dead] == 0).all() & (sim.vyd[dead] == 0).all())
+    assert bool((sim.xd[dead] >= 5e8).all() & (sim.yd[dead] >= 5e8).all())
+    counts = live.sum(dim=1)                       # [ny_pad, nx_pad]
+    kmax = torch.repeat_interleave(sim.occ.amax(dim=0), grid.row_block)
+    tb = grid.row_block
+    assert bool((counts[tb:tb + kmax.numel()] <= kmax[:, None]).all())
+
+
+@pytest.mark.parametrize("kernel", ["dbuf", "forces_t"])
+def test_twins_match_reference_on_edges_scene(edges, interpret, kernel):
+    """T1's and T3's twins against the reference's kernels on the edges
+    scene, at the gates of the module docstring."""
+    sim, grid, cfg = edges
+    params = tools.dam_break(4, "cpu").params
+    rho = cuda_solver.density_cuda(sim.xd, sim.yd, params, grid, sim.occ)
+    jgrid = bgf.GridSpec2D(grid.origin_x, grid.origin_y, grid.cell_size,
+                           grid.nx, grid.ny, grid.cap, grid.row_block)
+    jparams = bgf.FluidParams.demo()
+    tb = grid.row_block
+    if kernel == "dbuf":
+        planes = (sim.xd, sim.yd, sim.vxd, sim.vyd, rho, sim.ref_xd,
+                  sim.ref_yd)
+        jcfg = bgf.IntegrateConfig.create(x_min=float(cfg.x_min),
+                                          x_max=float(cfg.x_max))
+        want = ref_dbuf.make_dbuf(jgrid, jcfg, jparams)(
+            *(_j(p) for p in planes), _j(sim.occ))
+        got = ek.forces_integrate_dbuf_cuda(*planes, params, cfg, grid,
+                                            sim.occ)
+        for i in range(2):
+            np.testing.assert_allclose(_interior(got[i], tb),
+                                       _interior(want[i], tb), rtol=0,
+                                       atol=1e-6)
+        vscale = max(np.abs(_interior(want[i], tb)).max() for i in (2, 3))
+        for i in (2, 3):
+            np.testing.assert_allclose(_interior(got[i], tb),
+                                       _interior(want[i], tb), rtol=0,
+                                       atol=1e-4 * vscale)
+        wd = float(jnp.max(want[4]))
+        assert wd > 0 and abs(float(got[4]) - wd) <= 1e-4 * wd
+    else:
+        xt, yt, vxt, vyt, rhot = (ek.to_slot_major(p) for p in
+                                  (sim.xd, sim.yd, sim.vxd, sim.vyd, rho))
+        want = ref_tlayout.forces_t(_j(xt), _j(yt), _j(vxt), _j(vyt),
+                                    _j(rhot), jparams, jgrid)
+        got = ek.forces_t_cuda(xt, yt, vxt, vyt, rhot, params, grid,
+                               ek.block_kmax3_t(xt, grid))
+        w = [_interior(a, tb, axis=1) for a in want]
+        scale = max(np.abs(a).max() for a in w)
+        assert scale > 1.0
+        for g, a in zip(got, w):
+            np.testing.assert_allclose(_interior(g, tb, axis=1), a, rtol=0,
+                                       atol=1e-5 * scale)
 
 
 # ------------------------------------------------------------- the tools

@@ -1,9 +1,11 @@
 """The tiled CUDA kernels K1 (density), K2 (forces + integrate), K8 (forces
-alone), K5 (mono step), K4 (field raster) and K6 (select) against variants
-of their design, on one NVIDIA GPU: K1, K2, K8, K4 (P = 2 and 5) and K6
-(int32 codes) at the 1M-particle Session's planes (bench.py's dam break
-after 300 steps, as chip_smoke.py phase 3), K5 at the 10k grid of
-``bench.py --fps`` after 100 steps (as chip_smoke.py phase 8).
+alone), K5 (mono step), K4 (field raster) and K6 (select), and the
+TMA-ring experiments T1 (K2 staged ahead) and T3 (K8 on slot-major
+planes), against variants of their design, on one NVIDIA GPU: K1, K2, K8,
+K4 (P = 2 and 5), K6 (int32 codes), T1 and T3 at the 1M-particle
+Session's planes (bench.py's dam break after 300 steps, as chip_smoke.py
+phase 3), K5 at the 10k grid of ``bench.py --fps`` after 100 steps (as
+chip_smoke.py phase 8).
 
     python3 tools/torch_tile_study.py [variant ...]     # default: all
 
@@ -17,14 +19,19 @@ registers, shared memory and blocks per SM, and, for the variants that
 compute the same function, K1's max relative error against its twin on
 every slot and whether K2, K8, K5, K4 and K6 match their twins (K2 and
 K5: positions 1e-5, velocities 1e-4 of max |v|, dead slots bitwise; K5
-rho 1e-5 relative on live slots; K8 1e-5 of max |a|, dead slots +0; K4
-1e-5 relative on wet pixels; K6 bitwise).
+rho 1e-5 relative on live slots; K8 and T3 1e-5 of max |a|, dead slots
++0; K4 1e-5 relative on wet pixels; K6 bitwise; T1 bitwise K2).
 K4 runs its thread-per-cell kernel for P <= 4 and its halo-tile kernel
 for larger P: the ``field_*`` tile variants move only the P = 5 reading,
 and ``field_tile_only`` runs the tile kernel at every P.
 ``no_taps`` and ``no_dead`` (and ``field_no_taps``, ``select_no_scan``,
 ``select_no_write``) drop work and are timings only: what the tap
-loops and the dead-slot passes cost.  ``skip_far_taps`` (a branch per
+loops and the dead-slot passes cost (``no_taps`` drops T1's and T3's taps
+too: T1 taps through ``bgf::tile_accel``).  ``t1_r2`` gives T1 2-row
+tiles at four blocks per SM (it spills at the 80 registers that leaves),
+``t1_r2_u1`` the same with its slot loops not unrolled (no spill),
+``t3_r4`` T3 4-row tiles at two blocks, and ``tma_tile`` both a block
+per tile in place of their persistent walk.  ``skip_far_taps`` (a branch per
 candidate past its cell's count) is K1's alone: K2's, K8's and K5's force
 taps share ``bgf::tile_accel``, which loops to the largest count.  The
 variants run in turns, ``--rounds`` times (2 by default), and the last
@@ -54,6 +61,14 @@ _STENCIL = ("density.cu", "forces_integrate.cu", "forces.cu", "mono_step.cu")
 _K4_TAPS = ("      for (int kj = 0; kj < kb; ++kj) {\n#pragma unroll\n"
             "        for")                 # K4's halo-tile taps
 _K6_WRITE = "  for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {\n"
+_GRID = "bgf::persistent_grid(\n        kMinBlocks,"   # T1's and T3's
+_ONCE = "#pragma unroll 1\n"    # t1_r2_u1: T1's slot loops not unrolled
+_T1_BOXES = ("      for (int j = 0; j < kmax; ++j) {\n"
+             "        for (int f = 0; f < kWinFields")
+_T1_REFS = "      for (int s = 0; s < kmax; ++s) {\n        // the box"
+_REPACK = "    for (int kj = 0; kj < kmax; ++kj) {\n      const int i = (wr"
+_T3_TAPS = ("      for (int kj = 0; kj < kb; ++kj) {\n#pragma unroll\n"
+            "        for (int dy")            # T3's taps, (kj, dy, dx)
 
 # variant -> [(file under csrc/, text, replacement)]
 VARIANTS = {
@@ -83,9 +98,27 @@ VARIANTS = {
     "skip_far_taps": [           # a branch per candidate past its count
         ("density.cu", _K1_TAP, _SKIP + "          const float2 w")],
     "no_taps": [(f, _TAPS, _TAPS.replace("kj < kb", "kj < 0"))
-                for f in ("density.cu", "bgf_common.cuh", "mono_step.cu")],
+                for f in ("density.cu", "bgf_common.cuh", "mono_step.cu")]
+    + [("exp_tlayout.cu", _T3_TAPS, _T3_TAPS.replace("kj < kb", "kj < 0"))],
     "no_dead": [(f, _DEAD, _DEAD.replace("if (", "if (false && "))
                 for f in _STENCIL],
+    # T1 at 2-row tiles, four blocks per SM of 5 consumer warps; T3 at
+    # 4-row tiles, two blocks of 11; both a block per tile in place of
+    # the persistent walk
+    "t1_r2": [("exp_dbuf.cu", "kRows = 4;", "kRows = 2;"),
+              ("exp_dbuf.cu", "kWarps = 11;", "kWarps = 5;"),
+              ("exp_dbuf.cu", "kMinBlocks = 2;", "kMinBlocks = 4;")],
+    "t1_r2_u1": [("exp_dbuf.cu", "kRows = 4;", "kRows = 2;"),
+                 ("exp_dbuf.cu", "kWarps = 11;", "kWarps = 5;"),
+                 ("exp_dbuf.cu", "kMinBlocks = 2;", "kMinBlocks = 4;"),
+                 ("exp_dbuf.cu", _T1_BOXES, _ONCE + _T1_BOXES),
+                 ("exp_dbuf.cu", _T1_REFS, _ONCE + _T1_REFS),
+                 ("bgf_tma.cuh", _REPACK, _ONCE + _REPACK)],
+    "t3_r4": [("exp_tlayout.cu", "kRows = 2;", "kRows = 4;"),
+              ("exp_tlayout.cu", "kWarps = 6;", "kWarps = 11;"),
+              ("exp_tlayout.cu", "kMinBlocks = 4;", "kMinBlocks = 2;")],
+    "tma_tile": [(f, _GRID, _GRID.replace("kMinBlocks,", "1 << 16,"))
+                 for f in ("exp_dbuf.cu", "exp_tlayout.cu")],
 }
 TIMING_ONLY = ("no_taps", "no_dead", "field_no_taps", "select_no_scan",
                "select_no_write")
@@ -181,6 +214,12 @@ def field_rel(P):
 
 k6 = lambda: reslot.select_cuda(s.xd, s.yd, grid, s.occ)
 want6 = reslot.select_torch(s.xd, s.yd, grid, s.occ)
+from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
+t1 = lambda: ek.forces_integrate_dbuf_cuda(*args)
+slot_major = [ek.to_slot_major(p) for p in (s.xd, s.yd, s.vxd, s.vyd, rho)]
+t3 = lambda: ek.forces_t_cuda(*slot_major, params, grid,
+                              ek.block_kmax3_t(slot_major[0], grid))
+got_t3 = [ek.from_slot_major(a) for a in t3()]
 print(json.dumps(dict(
     k1_ms=device_ms(k1, "density_kernel"),
     k2_ms=device_ms(k2, "forces_integrate_kernel"),
@@ -189,6 +228,8 @@ print(json.dumps(dict(
     k4_ms=device_ms(k4[2], "field_"),
     k4p5_ms=device_ms(k4[5], "field_"),
     k6_ms=device_ms(k6, "select_kernel"),
+    t1_ms=device_ms(t1, "dbuf_kernel"),
+    t3_ms=device_ms(t3, "forces_t_kernel"),
     k1_rel=float(((got1 - rho).abs() / rho.abs().clamp_min(1e-30)).max()),
     k2_ok=step_ok(got2[:4], cuda_solver.forces_integrate_torch(*args)[:4],
                   dead),
@@ -200,9 +241,15 @@ print(json.dumps(dict(
           <= 1e-5,
     k4_ok=max(field_rel(2), field_rel(5)) <= 1e-5,
     k6_ok=all(torch.equal(g, w) for g, w in zip(k6(), want6)),
-    occupancy={n: _build.occupancy(n, grid.cap)
-               for n in ("density", "forces_integrate", "forces",
-                         "mono_step", "field", "select")})))
+    t1_ok=all(torch.equal(bits(g), bits(w)) for g, w in zip(t1(), got2)),
+    t3_ok=bool(max(float((g - w).abs().max()) for g, w in zip(got_t3, want8))
+               <= 1e-5 * a_scale
+               and all(bool((bits(g[dead]) == 0).all()) for g in got_t3)),
+    occupancy=dict({n: _build.occupancy(n, grid.cap)
+                    for n in ("density", "forces_integrate", "forces",
+                              "mono_step", "field", "select")},
+                   dbuf=_build.occupancy("forces_integrate_dbuf", grid.cap),
+                   forces_t=_build.occupancy("forces_t", grid.cap)))))
 '''
 
 
@@ -246,17 +293,19 @@ def main() -> None:
             occ = {n: (o["registers"], o["dynamic_smem"], o["blocks_per_sm"],
                        o["local_bytes"]) for n, o in r["occupancy"].items()}
             ok = all(r[k] for k in ("k2_ok", "k8_ok", "k5_ok", "k4_ok",
-                                    "k6_ok")) and r["k1_rel"] <= 1e-5
+                                    "k6_ok", "t1_ok", "t3_ok")) \
+                and r["k1_rel"] <= 1e-5
             check = ("timing only" if v in TIMING_ONLY else
-                     f"K1 rel {r['k1_rel']:.1e}, K2 / K8 / K5 / K4 / K6 "
-                     f"match {r['k2_ok']} / {r['k8_ok']} / {r['k5_ok']} / "
-                     f"{r['k4_ok']} / {r['k6_ok']}")
+                     f"K1 rel {r['k1_rel']:.1e}, K2 / K8 / K5 / K4 / K6 / "
+                     f"T1 / T3 match {r['k2_ok']} / {r['k8_ok']} / "
+                     f"{r['k5_ok']} / {r['k4_ok']} / {r['k6_ok']} / "
+                     f"{r['t1_ok']} / {r['t3_ok']}")
             print(f"{v}: K1 {r['k1_ms']:.4f} ms, K2 {r['k2_ms']:.4f} ms, "
                   f"K8 {r['k8_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms (P = 2; "
-                  f"P = 5 {r['k4p5_ms']:.4f}), K6 {r['k6_ms']:.4f} ms (1M "
-                  f"planes), K5 {r['k5_ms']:.4f} ms (10k); {check}; "
-                  f"(registers, shared bytes, blocks/SM, spill) {occ}",
-                  flush=True)
+                  f"P = 5 {r['k4p5_ms']:.4f}), K6 {r['k6_ms']:.4f} ms, T1 "
+                  f"{r['t1_ms']:.4f} ms, T3 {r['t3_ms']:.4f} ms (1M planes), "
+                  f"K5 {r['k5_ms']:.4f} ms (10k); {check}; (registers, "
+                  f"shared bytes, blocks/SM, spill) {occ}", flush=True)
             if v not in TIMING_ONLY and not ok:
                 raise RuntimeError(f"{v} disagrees with the twins")
     print(json.dumps(runs))
