@@ -20,15 +20,23 @@
 // (slot, row) in either layout, so the layout moves the rows of one slot
 // together and nothing else.
 //
-// T2's design: K1's halo tile (bgf_common.cuh) with another staging.  A
-// slot layer of the window, kWinRows rows x 32 columns, is one box of a
-// plane; each block copies the boxes of its slots below kmax into shared
-// memory with cp.async (bgf_async.cuh: 4-byte copies, the window's first
-// column being unaligned and wrapped), nothing through registers, then
-// counts each window cell's live prefix from shared memory.  The pair
-// listing, the thread per live pair and the dead slots' pass are K1's.
-// The window keeps the dense kernels' shared layout, window slot (wr, kj,
-// wc) at (wr * kmax + kj) * kWinCols + wc, in separate arrays per field.
+// T2's design: the walk tile of bgf_walk.cuh.  Its first form (K1's halo
+// tile, one 4-byte cp.async per element from an unaligned window, then a
+// second pass over shared memory for the counts) ran 1.28x K1.  Now 4 x
+// 28-cell tiles from column 1 (bgf::ring_tile), so a window row of one
+// slot layer, a row of the plane's slot layer kj, is eight aligned 16-byte
+// chunks: a warp per window row, its lanes four slot layers of the eight
+// chunks at a time, loads x and y as float4s, stores them as (x, y) pairs
+// into the column-major window and counts each column's live prefix in
+// the same pass.  Warp 0 lists the items (cell, slot pair) while the other
+// warps derive each tile cell's dead-slot rho from the counts (K1's: coeff
+// x (h^6 added n times), n the FAR candidates below kmax), plane column 0
+// included (its left neighbour, the last column, is a ghost column: count
+// 0); a thread per item taps K1's candidates (every one below the largest
+// of its cell's 9 counts, in (kj, dx, dy) order), each loaded once for
+// both slots' sums, so rho is K1's bit for bit.  128 threads a block, as
+// K1.  Timings, occupancy and the designs tried are in PERF.md
+// (chip_smoke.py phase 20 and tools/torch_tile_study.py).
 //
 // T3's design: the TMA stage of bgf_tma.cuh, as T1's (exp_dbuf.cu).  One
 // tensor map per input plane (x, y, vx, vy, rho), dims {nx_pad, ny_pad,
@@ -49,13 +57,13 @@
 // the interior tiles persistently (blocks per SM x SMs blocks; a block per
 // tile measured the same).
 
-#include "bgf_async.cuh"
-#include "bgf_common.cuh"
-#include "bgf_tma.cuh"
+#include "bgf_walk.cuh"
 
 namespace {
 
+using DensityTile = bgf::WalkTile<4, 7>;  // tile rows, window stride
 constexpr int kDensityBlock = 128;          // K1's
+constexpr int kDensitySlots = 2;   // slots a thread (1: K1's thread per slot)
 
 // Offset of the tile's output slot (tr, s, tc) in a slot-major plane.
 __device__ __forceinline__ long long out_offset(const bgf::Tile& t, int tr,
@@ -65,56 +73,14 @@ __device__ __forceinline__ long long out_offset(const bgf::Tile& t, int tr,
          t.col0 + tc;
 }
 
-// Copies the window slots kj < kmax of kPlanes slot-major planes into
-// dst[p] with cp.async, box by box (slot layer kj: window rows wr, columns
-// wc, 32 floats a row), fill[p] past the tile's ring; waits for the copies
-// and syncs the block.
-template <int kBlock, int kPlanes>
-__device__ __forceinline__ void stage_boxes(
-    const bgf::Tile& t, int kmax, int ny_pad, int nx_pad,
-    const float* const (&src)[kPlanes], float* const (&dst)[kPlanes],
-    const float (&fill)[kPlanes]) {
-  using namespace bgf;
-  const int n = kWinRows * kmax * kWinCols;
-  for (int e = threadIdx.x; e < n; e += kBlock) {
-    const int wc = e % kWinCols;
-    const int q = e / kWinCols;   // = kj * kWinRows + wr: box kj, row wr
-    const int kj = q / kWinRows;
-    const int wr = q - kj * kWinRows;
-    const int i = (wr * kmax + kj) * kWinCols + wc;
-    if (wr < t.rows + 2 && wc < t.cols + 2) {
-      const long long g =
-          (static_cast<long long>(kj) * ny_pad + t.row0 - 1 + wr) * nx_pad +
-          wrap_col(t.col0 - 1 + wc, nx_pad);
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) cp_async4(dst[p] + i, src[p] + g);
-    } else {
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) dst[p][i] = fill[p];
-    }
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// Live prefix of window cell c (wr, wc) = (c / kWinCols, c % kWinCols)
-// below kmax, from the staged x.
-__device__ __forceinline__ int live_prefix(const float* wx, int c, int kmax) {
-  const int wr = c / bgf::kWinCols;
-  const int wc = c - wr * bgf::kWinCols;
-  int n = 0;
-  for (int kj = 0; kj < kmax; ++kj)
-    n += n == kj && wx[(wr * kmax + kj) * bgf::kWinCols + wc] < bgf::kHalfFar;
-  return n;
-}
-
-// Dynamic shared memory of T2: the x and y windows, the window counts, the
-// pair list, the dead-slot rho per tile cell and the pair count (K1's).
+// Dynamic shared memory of T2: the (x, y) window at cap slot layers, the
+// window counts, the dead-slot rho per tile row and window column, the
+// items and their count (models/exp_kernels.walk_plan mirrors it).
 int density_t_smem(int cap) {
-  return bgf::kWinRows * cap * bgf::kWinCols * 8 +
-         bgf::kWinRows * bgf::kWinCols * 4 + bgf::kTileCells * cap * 4 +
-         bgf::kTileCells * 4 + 4;
+  using G = DensityTile;
+  return G::win_slots(cap) * 8 + G::kWinRows * bgf::kWinCols * 4 +
+         G::kRows * bgf::kWinCols * 4 +
+         bgf::item_slots<G, kDensitySlots>(cap) * 2 + 4;
 }
 
 __global__ void __launch_bounds__(kDensityBlock)
@@ -123,71 +89,101 @@ __global__ void __launch_bounds__(kDensityBlock)
                      int cap, int ny_pad, int nx_pad, int tb, int nb,
                      float h2, float coeff) {
   using namespace bgf;
-  const Tile t = tile_of(nx_pad, tb);
+  using G = DensityTile;
+  const Tile t = ring_tile(blockIdx.x, nx_pad, tb, G::kRows);
+  // window column wc of the tile is plane column col0 - 1 + wc
+  const auto out_at = [&](int tr, int s, int wc) {
+    return out_offset(t, tr, s, wc - 1, ny_pad, nx_pad);
+  };
   if (t.rb == 0 || t.rb == nb + 1) {
-    for_tile_slots<kDensityBlock>(t, cap, [&](int tr, int s, int tc) {
-      rho[out_offset(t, tr, s, tc, ny_pad, nx_pad)] = 0.0f;
+    for_walk_slots<kDensityBlock>(t, cap, [&](int tr, int s, int wc) {
+      rho[out_at(tr, s, wc)] = 0.0f;
     });
     return;
   }
-  extern __shared__ float smem_d[];
-  float* wx = smem_d;  // kWinRows x kmax x kWinCols each
-  float* wy = wx + kWinRows * cap * kWinCols;
-  int* cnt = reinterpret_cast<int*>(wy + kWinRows * cap * kWinCols);
-  int* pairs = cnt + kWinRows * kWinCols;
-  float* dead_rho = reinterpret_cast<float*>(pairs + kTileCells * cap);
-  int* n_pairs = reinterpret_cast<int*>(dead_rho + kTileCells);
+  extern __shared__ float2 smem_d[];
+  float2* win = smem_d;  // G::kLayer x cap, column-major
+  int* cnt = reinterpret_cast<int*>(win + G::win_slots(cap));
+  float* dead_rho = reinterpret_cast<float*>(cnt + G::kWinRows * kWinCols);
+  unsigned short* items =
+      reinterpret_cast<unsigned short*>(dead_rho + G::kRows * kWinCols);
+  int* n_items =
+      reinterpret_cast<int*>(items + item_slots<G, kDensitySlots>(cap));
 
   const int kmax = block_kmax(occ, nb, t.rb - 1);
-  stage_boxes<kDensityBlock, 2>(t, kmax, ny_pad, nx_pad, {x, y}, {wx, wy},
-                                {kFar, kFar});
-  for (int c = threadIdx.x; c < kWinRows * kWinCols; c += kDensityBlock)
-    cnt[c] = live_prefix(wx, c, kmax);
+  stage_chunks<kDensityBlock, G>(t, kmax, nx_pad, cnt,
+                                 [&](int kj, int wr, int q, bool in) {
+    float4 xv = make_float4(kFar, kFar, kFar, kFar), yv = xv;
+    if (in) {
+      const long long g =
+          (static_cast<long long>(kj) * ny_pad + t.row0 - 1 + wr) * nx_pad +
+          t.col0 - 1 + 4 * q;
+      xv = *reinterpret_cast<const float4*>(x + g);
+      yv = *reinterpret_cast<const float4*>(y + g);
+    }
+    const int j = G::at(kj, 4 * q, wr);
+    win[j] = make_float2(xv.x, yv.x);
+    win[j + G::kR] = make_float2(xv.y, yv.y);
+    win[j + 2 * G::kR] = make_float2(xv.z, yv.z);
+    win[j + 3 * G::kR] = make_float2(xv.w, yv.w);
+    return xv;
+  });
   __syncthreads();
   if (threadIdx.x < 32) {
-    list_pairs(t, kmax, cnt, pairs, n_pairs);
+    list_items<G::kRows, kDensitySlots>(t, kmax, cnt, items, n_items);
   } else {
-    // K1's dead-slot rho: coeff x (h^6 added n times), n the FAR
-    // candidates below kmax
+    // K1's dead-slot rho of each tile cell, and of plane column 0 in the
+    // first tile (window column 0): coeff x (h^6 added n times), n the
+    // FAR candidates below kmax
     const float h6 = poly6_term(0.0f, 0.0f, h2);
-    for (int c = threadIdx.x - 32; c < kTileCells; c += kDensityBlock - 32) {
-      const int tr = c / kTileCols;
-      const int n = 9 * kmax - neighbour_counts(cnt, tr, c - tr * kTileCols).y;
+    const int wc0 = t.col0 == 1 ? 0 : 1;
+    const int cols = t.cols + 1 - wc0;
+    for (int c = threadIdx.x - 32; c < t.rows * cols;
+         c += kDensityBlock - 32) {
+      const int tr = c / cols;
+      const int wc = wc0 + c - tr * cols;
+      int live = 0;
+      for (int dy = 0; dy < 3; ++dy)
+        for (int dx = wc == 0 ? 1 : 0; dx < 3; ++dx)
+          live += cnt[(tr + dy) * kWinCols + wc - 1 + dx];
+      const int n = 9 * kmax - live;
       float acc = 0.0f;
       for (int i = 0; i < n; ++i) acc += h6;
-      dead_rho[c] = acc * coeff;
+      dead_rho[tr * kWinCols + wc] = acc * coeff;
     }
   }
   __syncthreads();
 
-  const int np = *n_pairs;
-  const int rs = kmax * kWinCols;  // window row stride
-  for (int p = threadIdx.x; p < np; p += kDensityBlock) {
-    const int cell = pairs[p] >> 8;
-    const int s = pairs[p] & 255;
-    const int tr = cell / kTileCols;
-    const int tc = cell - tr * kTileCols;
-    const int own = (tr + 1) * rs + s * kWinCols + tc + 1;
-    const float ox = wx[own];
-    const float oy = wy[own];
-    const int kb = neighbour_counts(cnt, tr, tc).x;
-    const int b0 = tr * rs + tc;  // window slot (tr, 0, tc): dx = dy = -1
-    float acc = 0.0f;
-    for (int kj = 0; kj < kb; ++kj) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const int j = b0 + dy * rs + kj * kWinCols + dx;
-          acc += poly6_term(ox - wx[j], oy - wy[j], h2);
-        }
-    }
-    rho[out_offset(t, tr, s, tc, ny_pad, nx_pad)] = acc * coeff;
+  const int n = *n_items;
+  for (int p = threadIdx.x; p < n; p += kDensityBlock) {
+    const int cell = items[p] >> 6;
+    const int s = items[p] & 63;
+    const int tr = cell / kRingCols;
+    const int tc = cell - tr * kRingCols;
+    const int i0 = G::at(s, tc + 1, tr + 1);
+    // the second slot when it is live, else a copy of the first (summed,
+    // never written)
+    const bool two =
+        kDensitySlots == 2 && s + 1 < cnt[(tr + 1) * kWinCols + tc + 1];
+    const float2 own0 = win[i0];
+    const float2 own1 = win[two ? i0 + G::kLayer : i0];
+    float acc0 = 0.0f;
+    float acc1 = 0.0f;
+    walk_taps<G::kLayer, G::kR>(
+        cnt, tr, tc, G::at(0, tc, tr), [&](int j) {
+          const float2 w = win[j];
+          acc0 += poly6_term(own0.x - w.x, own0.y - w.y, h2);
+          if (kDensitySlots == 2)
+            acc1 += poly6_term(own1.x - w.x, own1.y - w.y, h2);
+        });
+    const long long g = out_at(tr, s, tc + 1);
+    rho[g] = acc0 * coeff;
+    if (two) rho[g + static_cast<long long>(ny_pad) * nx_pad] = acc1 * coeff;
   }
-  for_tile_slots<kDensityBlock>(t, cap, [&](int tr, int s, int tc) {
-    if (s >= cnt[(tr + 1) * kWinCols + tc + 1])
-      rho[out_offset(t, tr, s, tc, ny_pad, nx_pad)] =
-          dead_rho[tr * kTileCols + tc];
+  // dead slots, and plane column 0 (a ghost column: all its slots dead)
+  for_walk_slots<kDensityBlock>(t, cap, [&](int tr, int s, int wc) {
+    if (wc == 0 || s >= cnt[(tr + 1) * kWinCols + wc])
+      rho[out_at(tr, s, wc)] = dead_rho[tr * kWinCols + wc];
   });
 }
 
@@ -345,17 +341,21 @@ __global__ void __launch_bounds__(kForceThreads, kMinBlocks)
 
 }  // namespace
 
-// Slot-major planes [cap, ny_pad, nx_pad]; the arguments of bgf_density.
+// Slot-major planes [cap, ny_pad, nx_pad], 16-byte aligned, nx_pad a
+// multiple of 4, cap <= bgf::kMaxCap (the wrapper checks them;
+// cudaErrorInvalidValue here otherwise); the arguments of bgf_density.
 extern "C" int bgf_density_t(const float* x, const float* y, const int* occ,
                              float* rho, int ny_pad, int cap, int nx_pad,
                              int tb, int nb, float h2, float coeff,
                              cudaStream_t stream) {
+  if (cap > bgf::kMaxCap || nx_pad % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = density_t_smem(cap);
   const cudaError_t err = bgf::allow_smem(density_t_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  density_t_kernel<<<bgf::tiles_for(ny_pad, nx_pad, tb), kDensityBlock, smem,
-                     stream>>>(x, y, occ, rho, cap, ny_pad, nx_pad, tb, nb,
-                               h2, coeff);
+  density_t_kernel<<<bgf::walk_tiles(ny_pad, nx_pad, tb, DensityTile::kRows),
+                     kDensityBlock, smem, stream>>>(
+      x, y, occ, rho, cap, ny_pad, nx_pad, tb, nb, h2, coeff);
   return static_cast<int>(cudaGetLastError());
 }
 

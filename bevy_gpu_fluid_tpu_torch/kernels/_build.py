@@ -19,8 +19,9 @@ boxes (``csrc/bgf_tma.cuh``): their entry points encode the tensor maps
 with the driver's ``cuTensorMapEncodeTiled``, which they reach through
 the runtime's ``cudaGetDriverEntryPoint`` (``...ByVersion`` from CUDA
 12.5), so the library still links no ``-lcuda``; a refused map returns
-``100000`` + the driver's ``CUresult``.  T2 copies with ``cp.async``
-(``csrc/bgf_async.cuh``).
+``100000`` + the ``CUresult`` of ``cuTensorMapEncodeTiled``.  T2 and T4
+stage their windows in aligned 16-byte chunks and walk their taps two
+slots a thread (``csrc/bgf_walk.cuh``).
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises if that is not 0.  The kernel
 wrappers share ``check_planes`` (device, dtype, shape and contiguity of

@@ -14,7 +14,7 @@ Port of the Pallas kernels of the repo's ``tools/exp_*.py``:
 * T2 ``density_t_cuda`` (``csrc/exp_tlayout.cu``) replaces
   ``_density_kernel_t`` / ``density_t`` (tools/exp_tlayout.py:37, :182):
   K1 on SLOT-MAJOR planes ``[cap, ny_pad, nx_pad]``, taps in (kj, dx, dy)
-  order; bitwise K1 after ``movedim``;
+  order; bitwise K1 after ``movedim``; the walk tile (below);
 * T3 ``forces_t_cuda`` (``csrc/exp_tlayout.cu``) replaces
   ``_forces_kernel_t`` / ``forces_t`` (tools/exp_tlayout.py:84, :158): K8
   on slot-major planes, staged by the same TMA stage, taps in (kj, dy, dx)
@@ -24,8 +24,8 @@ Port of the Pallas kernels of the repo's ``tools/exp_*.py``:
   K8 in the five arithmetic variants of ``VARIANTS`` (v0 is K8's own
   arithmetic and bitwise K8; v0nr trades the rsqrt for ``r^2 + EPS``,
   wrong physics that prices the rsqrt; v1 folds the constants; v2 also
-  factors v_i out of the pair loop; v3 is v2 with the slot loop unrolled
-  by two, bitwise v2).
+  factors v_i out of the pair loop; v3 is v2 with the slot-layer loop
+  unrolled by two, bitwise v2); the walk tile.
 
 The slot-major planes hold the dense planes' cells, ghost blocks and FAR
 sentinel with the slot axis first (``to_slot_major``); their slot-loop
@@ -34,6 +34,13 @@ production wrappers, each wrapper computes with its twin on a CPU tensor
 and launches its kernel (counting the launch) or raises on a CUDA one.
 The twins repeat the TPU kernels' float operations in their order; the
 kernels differ from them by FMA contraction only.
+
+T2 and T4 share the walk tile of ``csrc/bgf_walk.cuh``: 4 x 28-cell tiles
+from column 1, the window staged in aligned 16-byte chunks into a
+column-major shared window, and a thread per (cell, slot pair) that taps
+its cell's candidates below the largest of the 9 counts, each loaded once
+for both slots.  ``walk_plan`` mirrors its layout and ``walk_items`` its
+item list, for the CPU tests.
 
 T1 and T3 lay out their TMA stage on the C side; ``dbuf_plan`` and
 ``forces_t_plan`` mirror that layout (a ``TmaPlan``) for the CPU tests to
@@ -238,11 +245,12 @@ def forces_t_plan(shape) -> TmaPlan:
 
 
 def _check_aligned(**planes) -> None:
-    """Each plane starts 16-byte aligned, as a tensor map's base must (an
-    offset view may not)."""
+    """Each plane starts 16-byte aligned, as a tensor map's base and a
+    16-byte copy's source must (an offset view may not)."""
     for name, t in planes.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: a TMA plane starts 16-byte aligned")
+            raise ValueError(f"{name}: the plane must start 16-byte aligned "
+                             f"(TMA boxes and 16-byte copies)")
 
 
 def plan_occupancy(plan: TmaPlan) -> dict:
@@ -252,6 +260,89 @@ def plan_occupancy(plan: TmaPlan) -> dict:
     cap = plan.dims[1] if plan.kernel == "dbuf" else plan.dims[2]
     o = _build.occupancy(name[plan.kernel], cap)
     return dict(o, resident_warps=o["blocks_per_sm"] * (plan.warps + 1))
+
+
+# ---------------------------------------------------------------------------
+# The walk tile of T2 and T4 (csrc/bgf_walk.cuh), mirrored
+# ---------------------------------------------------------------------------
+
+WALK_ROWS = 4        # tile rows (x RING_COLS columns, + a one-cell ring)
+WALK_STRIDE = 7      # the window's column stride (kR)
+WALK_MAX_CAP = 64    # an item holds its first slot in 6 bits
+# slots of a slot layer: 32 columns at the stride, plus one so that the
+# layer stride is odd (conflict-free staging)
+WALK_LAYER = WIN_COLS * WALK_STRIDE + 1
+WALK_SLOTS = 2       # slots a thread
+# kernel -> (threads a block, window bytes a slot): T2's (x, y); T4's
+# (x, y, vx, vy) and (p, 1/rho)
+WALK_KERNELS = {"density_t": (128, 8), "forces_variant": (256, 24)}
+SM_BLOCKS = 32       # blocks one SM holds
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """The layout of a T2 or T4 launch, as its C entry point lays it out."""
+    kernel: str          # "density_t" (T2) or "forces_variant" (T4)
+    shape: tuple         # dense plane shape [ny_pad, cap, nx_pad]
+    rows: int            # tile rows
+    stride: int          # window column stride (kR)
+    threads: int         # threads a block
+    window_bytes: int    # the window at cap slot layers; the counts follow
+    smem_bytes: int      # the block's dynamic shared memory
+    items: int           # item slots of a tile
+
+    @property
+    def tile_cols(self) -> list:
+        """(col0, cols) of each tile column: 28 columns from column 1."""
+        nx_pad = self.shape[2]
+        return [(c, min(RING_COLS, nx_pad - c))
+                for c in range(1, nx_pad, RING_COLS)]
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM's shared memory and warps hold (registers not
+        counted: the card's occupancy says)."""
+        return min(SM_SMEM // (self.smem_bytes + SMEM_RESERVED),
+                   SM_WARPS // (self.threads // 32), SM_BLOCKS)
+
+    def window_index(self, kj: int, wc: int, wr: int) -> int:
+        """Window slot (wr, kj, wc) in the column-major window."""
+        return kj * WALK_LAYER + wc * self.stride + wr
+
+
+@functools.lru_cache(maxsize=64)
+def walk_plan(shape, kernel: str) -> WalkPlan:
+    """The walk tile's layout of ``kernel`` ("density_t" or
+    "forces_variant") on dense planes ``shape`` = [ny_pad, cap, nx_pad]
+    (T2's slot-major planes hold the same cells); raises ValueError on what
+    the kernel does not take: a cap past ``WALK_MAX_CAP`` (the items'
+    slot field), nx_pad not a multiple of 4 (16-byte chunks), a block past
+    the SM's shared memory.  The window holds an even number of slots, so
+    the counts after it (stored as 16-byte int4s) start 16-byte aligned."""
+    ny_pad, cap, nx_pad = (int(v) for v in shape)
+    threads, slot_bytes = WALK_KERNELS[kernel]
+    if cap > WALK_MAX_CAP or nx_pad % 4:
+        raise ValueError(f"{kernel} at {shape}: the walk tile takes cap <= "
+                         f"{WALK_MAX_CAP} and nx_pad a multiple of 4")
+    win_rows = WALK_ROWS + 2
+    items = (WALK_ROWS * RING_COLS * -(-cap // WALK_SLOTS) + 1) & ~1
+    window = (WALK_LAYER * cap + cap % 2) * slot_bytes
+    dead_rho = WALK_ROWS * WIN_COLS * 4 if kernel == "density_t" else 0
+    smem = window + win_rows * WIN_COLS * 4 + dead_rho + items * 2 + 4
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"{kernel} at {shape}: {smem} bytes of shared "
+                         f"memory a block")
+    return WalkPlan(kernel, (ny_pad, cap, nx_pad), WALK_ROWS, WALK_STRIDE,
+                    threads, window, smem, items)
+
+
+def walk_items(cnt, kmax: int, slots: int = WALK_SLOTS) -> list:
+    """A tile's items as warp 0 lists them: (row, col, s, two) for the
+    tile's cell counts ``cnt`` [rows][cols], in (row, slot step, column)
+    order; s the first slot, ``two`` whether slot s + 1 is live too."""
+    return [(r, c, s, slots == 2 and s + 1 < n[c])
+            for r, n in enumerate(cnt) for s in range(0, kmax, slots)
+            for c in range(len(n)) if s < n[c]]
 
 
 # ---------------------------------------------------------------------------
@@ -334,12 +425,16 @@ def density_t_torch(xt, yt, params: FluidParams, grid: GridSpec2D,
 def density_t_cuda(xt, yt, params: FluidParams, grid: GridSpec2D,
                    occ) -> torch.Tensor:
     """Density over slot-major planes ``[cap, ny_pad, nx_pad]`` (kernel
-    T2); ``occ`` is ``block_kmax3_t(xt, grid)``.  Returns a new slot-major
-    rho plane with ghost blocks 0.  ``launches`` counts the launches."""
+    T2), each 16-byte aligned; ``occ`` is ``block_kmax3_t(xt, grid)``.
+    Returns a new slot-major rho plane with ghost blocks 0.  On the card
+    ``walk_plan`` refuses a cap past ``WALK_MAX_CAP``.  ``launches`` counts
+    the launches."""
     dev = _build.check_planes(grid, occ, shape=slot_major_shape(grid),
                               xt=xt, yt=yt)
+    _check_aligned(xt=xt, yt=yt)
     if dev.type == "cpu":
         return density_t_torch(xt, yt, params, grid, occ)
+    walk_plan(grid.plane_shape, "density_t")
     h2, coeff = _density_consts(params)
     rho = torch.empty_like(xt)
     _build.launch("bgf_density_t", dev, xt.data_ptr(), yt.data_ptr(),
@@ -475,14 +570,17 @@ def forces_variant_torch(xd, yd, vxd, vyd, rho_d, params: FluidParams,
 def forces_variant_cuda(xd, yd, vxd, vyd, rho_d, params: FluidParams,
                         grid: GridSpec2D, occ, variant: str):
     """K8's accelerations in arithmetic variant ``variant`` (kernel T4, one
-    of ``VARIANTS``); K8's contract.  ``launches`` counts every launch,
-    ``launches_<variant>`` each variant's."""
+    of ``VARIANTS``); K8's contract, the planes 16-byte aligned.  On the
+    card ``walk_plan`` refuses a cap past ``WALK_MAX_CAP``.  ``launches``
+    counts every launch, ``launches_<variant>`` each variant's."""
     _check_variant(variant)
-    dev = _build.check_planes(grid, occ, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
-                              rho_d=rho_d)
+    planes = dict(xd=xd, yd=yd, vxd=vxd, vyd=vyd, rho_d=rho_d)
+    dev = _build.check_planes(grid, occ, **planes)
+    _check_aligned(**planes)
     if dev.type == "cpu":
         return forces_variant_torch(xd, yd, vxd, vyd, rho_d, params, grid,
                                     occ, variant)
+    walk_plan(grid.plane_shape, "forces_variant")
     c = _forces_consts(params)
     ax = torch.empty_like(xd)
     ay = torch.empty_like(xd)

@@ -236,7 +236,12 @@ with the validator — then checks them:
     their resident warps per SM (held to their layout's), stage bytes, the
     bytes staged a launch and the bytes the function must move (below
     each row's slot bound, every output slot written; its bound may not
-    exceed the measured time); no spill in any kernel of the phase.
+    exceed the measured time); no spill in any kernel of the phase.  T2
+    and T4 (the walk tile, ``csrc/bgf_walk.cuh``) print their registers,
+    blocks and warps per SM and spill bytes (their shared memory held to
+    ``exp_kernels.walk_plan``'s), at 1M, on a ``#`` line, the modelled
+    warp lane-slots of one slot a thread against two
+    (``walk_lane_slots``), and T4's dead slots are held to +0.
     ``python3 chip_smoke.py 20`` runs phase 20 alone and prints no result
     line.
 21. the port's bench (``bevy_gpu_fluid_tpu_torch/tools/bench.py``,
@@ -524,6 +529,49 @@ def tile_taps(xd, occ, grid) -> tuple[float, float]:
     the largest of those 9 counts, the tiled kernels' per-slot loop."""
     live, nsum, nmax = neighbour_live(xd, occ, grid)
     return float((live * nsum).sum()), 9.0 * float((live * nmax).sum())
+
+
+def walk_lane_slots(xd, occ, grid, rows: int = 4, cols: int = 28) -> dict:
+    """The warps' tap loops of T2 and T4 on these planes, modelled on
+    their walk tile (``rows`` x ``cols`` cells from column 1, items listed
+    in (row, slot step, column) order, 32 consecutive items a warp, each
+    warp costed at its longest lane, a lane tapping 9 x the largest of its
+    cell's 9 counts): ``old``, the lane-slots of one slot a thread;
+    ``new``, the lane iterations of two slots a thread, each candidate
+    loaded once for both; ``useful``, the pair taps the live slots need
+    (``tile_taps``).  A model, not a measurement."""
+    live, nsum, nmax = neighbour_live(xd, occ, grid)
+    tb, nb = grid.row_block, grid.n_row_blocks
+    tbp = -(-tb // rows) * rows
+    nxp = -(-(grid.nx_pad - 1) // cols) * cols
+
+    def tiled(a):
+        """[tiles, rows, cols] of the interior cells, zero-padded."""
+        a = a[tb:tb + nb * tb, 1:].reshape(nb, tb, grid.nx_pad - 1)
+        a = torch.nn.functional.pad(a, (0, nxp - grid.nx_pad + 1, 0,
+                                        tbp - tb))
+        return (a.reshape(nb, tbp // rows, rows, nxp // cols, cols)
+                .permute(0, 1, 3, 2, 4).reshape(-1, rows, cols))
+
+    n, m9 = tiled(live), tiled(nmax)
+
+    def lane_slots(step, cost):
+        s = torch.arange(0, grid.cap, step, device=n.device)
+        have = s[None, None, :, None] < n[:, :, None, :]  # [t, r, s, c]
+        have = have.reshape(have.shape[0], -1)
+        c = torch.broadcast_to(cost[:, :, None, :], (*cost.shape[:2],
+                                                     s.numel(),
+                                                     cost.shape[2]))
+        c = c.reshape(have.shape[0], -1)
+        warp = (torch.cumsum(have, dim=1) - 1) // 32
+        per = torch.zeros(have.shape[0], have.shape[1] // 32 + 1,
+                          dtype=c.dtype, device=c.device)
+        per.scatter_reduce_(1, warp.clamp_min(0), torch.where(have, c, 0),
+                            "amax")
+        return 32.0 * float(per.sum())
+
+    return dict(useful=float((live * nsum).sum()),
+                old=lane_slots(1, 9 * m9), new=lane_slots(2, 9 * m9))
 
 
 def field_taps(xd, occ, grid, P) -> tuple[float, float, float]:
@@ -2967,9 +3015,10 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
           and launches["density"] == CEILING_STEPS,
           f"refless K2 / K1 launches {launches}")
     check(peak < total, f"peak {peak} over the card's {total}")
-    for row in kernels:      # the row phase 15 made (absent when run alone)
-        if row["name"] == "forces_integrate_refless":
-            row["launches"] = launches["forces_integrate_refless"]
+    # the row phase 15 made (absent when run alone)
+    refless_row = next((r for r in kernels
+                        if r["name"] == "forces_integrate_refless"), {})
+    refless_row["launches"] = launches["forces_integrate_refless"]
 
     # where a ceiling step goes: K1, K2 refless and one rebin by CUDA
     # events against the timed ms/step; torch.profiler's view beside them
@@ -3038,19 +3087,19 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
         c_ms_long = cuda_ms(k2c, 100)
     c_bound = bound(9 * 4.0 * s.xd.numel() + 4.0 * s.occ.numel() + 4,
                     need_taps * FORCE_OPS + n_live * 20)
-    row.update(ceiling_ms=c_ms, ceiling_ms_100_calls=c_ms_long,
-               ceiling_bound_ms=c_bound["bound_ms"],
-               ceiling_bound_by=c_bound["bound_by"],
-               ceiling_shape=list(grid.plane_shape), ceiling_n=n,
-               ceiling_ms_per_step=ms_step)
+    refless_row.update(ceiling_ms=c_ms, ceiling_ms_100_calls=c_ms_long,
+                       ceiling_bound_ms=c_bound["bound_ms"],
+                       ceiling_bound_by=c_bound["bound_by"],
+                       ceiling_shape=list(grid.plane_shape), ceiling_n=n,
+                       ceiling_ms_per_step=ms_step)
     print(f"#   K2 refless on the ceiling planes: {c_ms:.3f} ms "
           f"(profiler, 3 calls), {c_ms_long:.3f} ms per call over 100 calls "
           f"(CUDA events; {k2_smi.summary()}), bound "
           f"{c_bound['bound_ms']:.3f} ms by "
           f"{c_bound['bound_by']} ({c_bound['bound_bytes'] / 1e9:.2f} GB, "
           f"{c_bound['bound_ops'] / 1e9:.1f} GFLOP); launches on the "
-          f"ceiling path {row['launches']} in {CEILING_STEPS} steps on "
-          f"{card}", flush=True)
+          f"ceiling path {refless_row['launches']} in {CEILING_STEPS} "
+          f"steps on {card}", flush=True)
     # K1 into the dead rho plane (the ceiling's owned planes) on the same
     # planes: the profiler's time and its bound (x, y read, rho written)
     k1c = lambda: cuda_solver.density_cuda(s.xd, s.yd, params, grid, s.occ,
@@ -3929,6 +3978,7 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
     del prod
 
     # T4's variants against K8
+    lanes = walk_lane_slots(s.xd, s.occ, grid) if full else None
     f8 = (s.xd, s.yd, s.vxd, s.vyd, rho0, params, grid, s.occ)
     a8 = cuda_solver.forces_cuda(*f8)
     a_scale = float(torch.maximum(a8[0].abs().max(), a8[1].abs().max()))
@@ -3949,11 +3999,15 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
             + n_live * 3)
         rows[f"forces_variant_{v}"] = dict(
             max_abs_err=err, ms=timed(fn, "forces_variant_kernel"),
-            prod="forces", prod_ms=k8_ms,
+            prod="forces", prod_ms=k8_ms, lanes=lanes if v == "v0" else None,
             plain_ms=(cuda_ms(lambda v=v: ek.forces_variant_torch(*f8, v), 3)
                       if twins else None), **b)
     check(all(bits_equal(a, b) for a, b in zip(outs["v0"], a8)),
           "T4 v0 not bitwise K8")
+    dead = s.xd >= 5e8
+    check(all(bits_equal(a[dead], torch.zeros_like(a[dead]))
+              for v in ek.VARIANTS for a in outs[v]),
+          "T4's dead slots not +0")
     check(all(bits_equal(a, b) for a, b in zip(outs["v3"], outs["v2"])),
           "T4 v3 not bitwise v2")
     for v in ("v1", "v2"):
@@ -3988,6 +4042,7 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
         del want
     rows["density_t"] = dict(
         max_abs_err=err, ms=timed(t2, "density_t_kernel"),
+        lanes=walk_lane_slots(s.xd, s.occ, grid) if full else None,
         prod="density",
         prod_ms=timed(lambda: cuda_solver.density_cuda(*d1),
                       "density_kernel"),
@@ -4033,6 +4088,15 @@ def exp_rows(n: int, full: bool, card: str) -> dict:
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({r['bound_ms'] / r['ms']:.0%} of it); max err vs its twin "
               f"{r['max_abs_err']}; on {card}", flush=True)
+        if r.get("lanes"):
+            w = r["lanes"]
+            print(f"#     {name}: modelled warp lane-slots (9 x the "
+                  f"largest count a lane), one slot a thread "
+                  f"{w['old']:.0f} against two slots a thread "
+                  f"{w['new']:.0f} ({w['useful'] / w['new']:.2f} pair "
+                  f"taps each) for {w['useful']:.0f} pair taps needed "
+                  f"({w['useful'] / w['old']:.0%} of the one-slot "
+                  f"lane-slots); a model, not a measurement", flush=True)
         if "need_bytes" not in r:
             continue
         # the bytes the function must move: no faster than they allow
@@ -4085,6 +4149,17 @@ def kernel_experiments(kernels: list, card: str) -> None:
               f"shared memory bytes per block, blocks per SM)", flush=True)
         check(o["local_bytes"] == 0 and o["blocks_per_sm"] >= 1,
               f"{name}: {o}")
+    for name in ("density_t", *(f"forces_variant_{v}" for v in ek.VARIANTS)):
+        o = occ[name]
+        wp = ek.walk_plan((696, cap, 640), name.rsplit("_v", 1)[0])
+        print(f"#   {name}: walk tile {wp.rows} x {ek.RING_COLS}, "
+              f"{o['registers']} registers, {o['blocks_per_sm']} blocks of "
+              f"{wp.threads} threads = "
+              f"{o['blocks_per_sm'] * wp.threads // 32} warps per SM, "
+              f"{o['local_bytes']} spill bytes (shared memory {wp.smem_bytes} "
+              f"bytes a block, {wp.blocks_per_sm} blocks by it)", flush=True)
+        check(o["dynamic_smem"] == wp.smem_bytes,
+              f"{name}: another layout than walk_plan's: {o} against {wp}")
     for name, p in plans.items():
         o = occ[name]
         print(f"#   {name}: {p.rows}-row tiles, {p.warps} consumer warps + 1 "

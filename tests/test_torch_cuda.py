@@ -17,9 +17,12 @@ as the reference (and within K2's tolerances of its twin), K1 with
 ``out=`` bitwise without it.  The kernel experiments (T1-T4) at their
 production counterparts' gates against their twins: T1 as K2 and bitwise
 K2, T2 as K1 and bitwise K1 after ``movedim``, T3 and T4 as K8 (T1's and
-T3's TMA layouts as ``exp_kernels`` mirrors them), T4's v0 bitwise K8 and v3 bitwise v2, T3 and T4's v1 and v2 within K8's
-gate of K8.  The kernels contract multiply-adds into FMAs
-and use the hardware rsqrt; the twins round every operation.  The planar
+T3's TMA layouts and T2's and T4's walk tile as ``exp_kernels`` mirrors
+them), T4's v0 bitwise K8 and v3 bitwise v2, T3 and T4's v1 and v2 within
+K8's gate of K8, T4's dead slots +0 on scenes with odd and full cells and
+at an odd cap.
+The kernels contract multiply-adds into FMAs and use the hardware rsqrt;
+the twins round every operation.  The planar
 Session is bitwise the fused one (both rebins route the same values); the
 generator init, the segmented driver and a restored Session are bitwise
 what they replace.
@@ -34,6 +37,7 @@ import pytest
 import torch
 
 import bevy_gpu_fluid_tpu_torch as bt
+from bevy_gpu_fluid_tpu_torch.kernels import _build
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
@@ -1146,6 +1150,63 @@ def test_forces_variant_kernel_matches_twin(exp_scene, variant):
         assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, v2))
     if variant != "v0nr":
         _accel_gate(got, k8, s.xd)
+
+
+@pytest.mark.parametrize("kernel", list(ek.WALK_KERNELS))
+def test_walk_plan_matches_the_kernel(cuda, kernel):
+    """The walk tile ``exp_kernels.walk_plan`` mirrors is the C side's:
+    its dynamic shared memory, no spill, blocks per SM up to what its
+    shared memory allows (T4: every variant)."""
+    plan = ek.walk_plan((696, 8, 640), kernel)
+    variants = ([(i,) for i in range(len(ek.VARIANTS))]
+                if kernel == "forces_variant" else [()])
+    for v in variants:
+        occ = _build.occupancy(kernel, 8, *v)
+        assert occ["dynamic_smem"] == plan.smem_bytes
+        assert occ["local_bytes"] == 0
+        assert 1 <= occ["blocks_per_sm"] <= plan.blocks_per_sm
+
+
+def _walk_kernels_check(s, grid, rho):
+    """T2 bitwise K1 (``rho``) after ``movedim``; every T4 variant's dead
+    slots +0, v0 bitwise K8, v3 bitwise v2."""
+    xt, yt = ek.to_slot_major(s.xd), ek.to_slot_major(s.yd)
+    got = ek.density_t_cuda(xt, yt, PARAMS, grid, ek.block_kmax3_t(xt, grid))
+    assert torch.equal(_bits(ek.from_slot_major(got)), _bits(rho))
+    args = (s.xd, s.yd, s.vxd, s.vyd, rho, PARAMS, grid, s.occ)
+    a = {v: ek.forces_variant_cuda(*args, v) for v in ek.VARIANTS}
+    dead = s.xd >= FAR * 0.5
+    for v in ek.VARIANTS:
+        assert all(bool((_bits(g[dead]) == 0).all()) for g in a[v])
+    k8 = cuda_solver.forces_cuda(*args)
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(a["v0"], k8))
+    assert all(torch.equal(_bits(g), _bits(w))
+               for g, w in zip(a["v3"], a["v2"]))
+
+
+def test_walk_kernels_on_odd_and_full_cells(exp_scene):
+    """T2 and T4 where cells hold odd counts (a thread's second slot dead)
+    and cells at cap."""
+    s, grid, _, rho = exp_scene
+    counts = (s.xd < FAR * 0.5).sum(dim=1)
+    assert bool((counts % 2 == 1).any()) and bool((counts >= 2).any())
+    _walk_kernels_check(s, grid, rho)
+
+
+def test_walk_kernels_at_an_odd_cap(edges):
+    """T2 and T4 at cap 7 (the edges scene's planes cut to their first 7
+    slot layers, live prefixes still): an odd number of slot layers, where
+    the counts after the window must still start 16-byte aligned, with
+    cells at cap."""
+    sim, grid, _ = edges
+    g7 = dataclasses.replace(grid, cap=7)
+    cut = {f: getattr(sim, f)[:, :7].contiguous()
+           for f in ("xd", "yd", "vxd", "vyd")}
+    occ = reslot.block_kmax3(cut["xd"], g7)
+    s7 = dataclasses.replace(sim, occ=occ, **cut)
+    assert int((cut["xd"] < FAR * 0.5).sum(dim=1).max()) == 7
+    rho = cuda_solver.density_cuda(s7.xd, s7.yd, PARAMS, g7, occ)
+    _walk_kernels_check(s7, g7, rho)
 
 
 @pytest.mark.parametrize("n", [10_000, 100_000])

@@ -15,7 +15,12 @@ tool's own directory; the module puts back the setting it found.
 
 T1's and T3's TMA layouts (``dbuf_plan``, ``forces_t_plan``: the mirror
 of what their C entry points lay out) are pinned on every plane shape the
-repo runs against TMA's rules and the SM they are built for; the edges scene
+repo runs against TMA's rules and the SM they are built for, and so is the
+walk tile of T2 and T4 (``walk_plan``: its tiles, its 16-byte chunks, its
+shared memory, its counts 16-byte aligned at every cap); its items
+(``walk_items``) are held on four of the premise scenes of
+tests/test_torch_stencil_tiles.py, the edges scene and the tools' scene:
+they cover every live slot once and no dead one.  The edges scene
 (``torch_scenes.edges_scene``, shared with the card tests) is checked for
 the premises its card tests rely on, and the twins against the reference
 kernels on it.
@@ -51,7 +56,8 @@ from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as tvs
 from bevy_gpu_fluid_tpu_torch.tools import exp_dbuf, exp_forces, exp_tlayout
 from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
-from torch_scenes import EDGES_GRID, edges_scene
+from bevy_gpu_fluid_tpu_torch.ops.reslot import row_kmax
+from torch_scenes import EDGES_GRID, edges_scene, tile_scenes
 
 torch.set_num_threads(1)
 
@@ -464,6 +470,175 @@ def test_twins_match_reference_on_edges_scene(edges, interpret, kernel):
         for g, a in zip(got, w):
             np.testing.assert_allclose(_interior(g, tb, axis=1), a, rtol=0,
                                        atol=1e-5 * scale)
+
+
+# -------------------------------------------------------- T2, T4 walk tile
+
+def test_walk_items_list_slot_pairs_in_row_slot_column_order():
+    cnt = [[3, 0, 2], [1, 4, 0]]
+    assert ek.walk_items(cnt, 4) == [
+        (0, 0, 0, True), (0, 2, 0, True), (0, 0, 2, False),
+        (1, 0, 0, False), (1, 1, 0, True), (1, 1, 2, True)]
+    assert ek.walk_items(cnt, 4, slots=1) == [
+        (0, 0, 0, False), (0, 2, 0, False), (0, 0, 1, False),
+        (0, 2, 1, False), (0, 0, 2, False), (1, 0, 0, False),
+        (1, 1, 0, False), (1, 1, 1, False), (1, 1, 2, False),
+        (1, 1, 3, False)]
+
+
+WALK_SCENES = ("init", "need", "readmitted", "mono", "edges", "tools")
+
+
+@pytest.fixture(scope="module")
+def walk_scenes(scene, edges):
+    """name -> (sim, grid): four premise scenes, the edges scene (cells at
+    cap beside the wrapped ghost column, a short last tile, odd row
+    block) and the tools' scene."""
+    out = {k: v[:2] for k, v in
+           tile_scenes(("init", "need", "readmitted", "mono")).items()}
+    out["edges"] = edges[:2]
+    out["tools"] = (scene["sim"], scene["sc"].grid)
+    return out
+
+
+def _counts(sim, grid):
+    """Each cell's live slots below its row's bound, [ny_pad, nx_pad]."""
+    live = (sim.xd < 0.5 * FAR).sum(dim=1)
+    return torch.minimum(live, row_kmax(sim.occ, grid)[:, 0])
+
+
+def _tiles(grid):
+    """(rows, cols) of each walk tile's interior cells."""
+    tb = grid.row_block
+    plan = ek.walk_plan(grid.plane_shape, "density_t")
+    for rb in range(1, grid.n_row_blocks + 1):
+        for r0 in range(0, tb, plan.rows):
+            rows = range(rb * tb + r0, rb * tb + min(r0 + plan.rows, tb))
+            for col0, cols in plan.tile_cols:
+                yield rows, range(col0, col0 + cols)
+
+
+@pytest.mark.parametrize("name", WALK_SCENES)
+def test_walk_items_cover_every_live_slot_once(walk_scenes, name):
+    """Over the walk tiles, the items (cell, s, two) list every live slot
+    exactly once and no dead one: s is live, s + 1 is live iff ``two``
+    (a cell of odd count leaves its last item one slot)."""
+    sim, grid = walk_scenes[name]
+    n = _counts(sim, grid)
+    kmax = row_kmax(sim.occ, grid)[:, 0, 0]
+    seen = torch.zeros(grid.plane_shape, dtype=torch.int64)
+    odd = 0
+    for rows, cols in _tiles(grid):
+        cnt = [[int(n[r, c]) for c in cols] for r in rows]
+        for i, j, s, two in ek.walk_items(cnt, int(kmax[rows[0]])):
+            r, c = rows[i], cols[j]
+            assert s % 2 == 0 and s < cnt[i][j]
+            assert two == (s + 1 < cnt[i][j])
+            seen[r, s, c] += 1
+            if two:
+                seen[r, s + 1, c] += 1
+            odd += not two
+    live = sim.xd < 0.5 * FAR
+    assert torch.equal(seen, live.to(torch.int64))
+    # the tools' lattice fills its cells evenly; the others hold odd cells
+    assert odd > 0 or name == "tools"
+
+
+@pytest.mark.parametrize("shape_name", list(PLANE_SHAPES))
+@pytest.mark.parametrize("kernel", list(ek.WALK_KERNELS))
+def test_walk_plan_on_every_plane_shape(kernel, shape_name):
+    """The walk tile on every plane shape the repo runs: its tiles cover
+    every column from 1 on exactly once (column 0, a ghost column, is the
+    first tile's lane 31), every window row starts on a 16-byte boundary
+    of the plane in both layouts and its chunks lie all inside the plane or
+    all past it, and the window, the counts and the items fit the block's
+    shared memory with blocks to spare."""
+    want, made = PLANE_SHAPES[shape_name]
+    shape = tuple(made()) if made else want
+    ny_pad, cap, nx_pad = shape
+    plan = ek.walk_plan(shape, kernel)
+    covered = np.zeros(nx_pad, int)
+    for col0, cols in plan.tile_cols:
+        assert 0 < cols <= ek.RING_COLS
+        covered[col0:col0 + cols] += 1
+        # the window's first column and its row strides in both layouts
+        assert (4 * (col0 - 1)) % 16 == 0
+        assert all(s % 16 == 0 for s in (4 * nx_pad, 4 * cap * nx_pad,
+                                         4 * ny_pad * nx_pad))
+        for q in range(ek.WIN_COLS // 4):     # chunks all in or all out
+            c = col0 - 1 + 4 * q
+            assert (c + 3 < nx_pad) == (c < nx_pad)
+    assert covered[0] == 0 and (covered[1:] == 1).all()
+    assert plan.threads // 32 >= 4
+    threads, slot_bytes = ek.WALK_KERNELS[kernel]
+    layer = ek.WALK_LAYER
+    assert layer == 32 * plan.stride + 1 and layer % 2   # odd: no conflicts
+    assert plan.window_bytes == (layer * cap + cap % 2) * slot_bytes
+    assert plan.window_bytes % 16 == 0     # the counts' int4 stores
+    assert plan.stride >= plan.rows + 2 and plan.stride % 2 == 1
+    assert plan.window_index(1, 0, 0) == layer
+    assert plan.window_index(0, 1, 0) == plan.stride
+    assert plan.smem_bytes >= plan.window_bytes + (plan.rows + 2) * 32 * 4
+    assert plan.smem_bytes <= ek.BLOCK_SMEM
+    assert plan.items * 2 >= plan.rows * ek.RING_COLS * -(-cap // 2) * 2
+    assert plan.blocks_per_sm >= (12 if kernel == "density_t" else 5)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 7, 8, 9, 31, 63])
+@pytest.mark.parametrize("kernel", list(ek.WALK_KERNELS))
+def test_walk_plan_aligns_the_counts_at_every_cap(kernel, cap):
+    """The counts follow the window and are stored as int4s: they start
+    16-byte aligned at an odd cap too (an odd slot layer of 225 slots of 8
+    or 24 bytes would leave them 8 bytes off), and the items and their
+    count after them 4-byte aligned."""
+    try:
+        plan = ek.walk_plan((96, cap, 128), kernel)
+    except ValueError:     # T4's window past a block's shared memory
+        assert kernel == "forces_variant" and cap == 63
+        return
+    slot_bytes = ek.WALK_KERNELS[kernel][1]
+    assert plan.window_bytes >= ek.WALK_LAYER * cap * slot_bytes
+    assert plan.window_bytes % 16 == 0
+    dead_rho = plan.rows * ek.WIN_COLS * 4 if kernel == "density_t" else 0
+    items_at = plan.window_bytes + (plan.rows + 2) * ek.WIN_COLS * 4 \
+        + dead_rho
+    assert items_at % 4 == 0 and (items_at + 2 * plan.items) % 4 == 0
+    assert plan.smem_bytes == items_at + 2 * plan.items + 4
+
+
+def test_walk_plan_refuses_what_the_kernel_does_not_take():
+    """A cap past the items' slot field, nx_pad off the 16-byte chunks,
+    and a window past a block's shared memory are refused."""
+    ek.walk_plan((96, ek.WALK_MAX_CAP, 128), "density_t")
+    for shape, kernel in (((96, ek.WALK_MAX_CAP + 1, 128), "density_t"),
+                          ((96, 8, 126), "forces_variant"),
+                          ((96, ek.WALK_MAX_CAP, 128), "forces_variant")):
+        with pytest.raises(ValueError):
+            ek.walk_plan(shape, kernel)
+
+
+def test_walk_wrappers_refuse_offset_views(scene, slot_major):
+    """T2's and T4's 16-byte chunks: a plane that starts off a 16-byte
+    boundary (an offset view), or is not contiguous, is refused before
+    any launch."""
+    sim, sc, rho = scene["sim"], scene["sc"], scene["rho"]
+    xt, yt, occ_t = slot_major
+    flat = torch.empty(xt.numel() + 1, dtype=torch.float32)
+    shifted = flat[1:].view(xt.shape)
+    shifted.copy_(xt)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        ek.density_t_cuda(xt, shifted, sc.params, sc.grid, occ_t)
+    flat = torch.empty(sim.xd.numel() + 1, dtype=torch.float32)
+    shifted = flat[1:].view(sim.xd.shape)
+    shifted.copy_(sim.vxd)
+    with pytest.raises(ValueError, match="aligned"):
+        ek.forces_variant_cuda(sim.xd, sim.yd, shifted, sim.vyd, rho,
+                               sc.params, sc.grid, sim.occ, "v0")
+    with pytest.raises(ValueError):    # not contiguous
+        ek.forces_variant_cuda(sim.xd.transpose(0, 2).contiguous()
+                               .transpose(0, 2), sim.yd, sim.vxd, sim.vyd,
+                               rho, sc.params, sc.grid, sim.occ, "v2")
 
 
 # ------------------------------------------------------------- the tools

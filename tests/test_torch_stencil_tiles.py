@@ -22,97 +22,32 @@ right only if:
 * a dead slot's K8 accelerations are exactly +0, and K5 leaves a dead
   slot's x and y as they were with velocity +0.
 
-The scenes are small: the kicked 24 x 24 block of tests/test_torch_cuda.py
-(on the 12-row-block grid, and on a 7-row-block grid where the Session
-steps on K5) and the recovery scene of tests/test_torch_session.py (9
-particles in one cell at cap 8), each of the two also stepped on to where
-the rebin trigger fires.  Every comparison is exact, on the float
+The scenes are small (``torch_scenes.tile_scenes``, shared with
+tests/test_torch_exp.py): the kicked 24 x 24 block of
+tests/test_torch_cuda.py (on the 12-row-block grid, and on a 7-row-block
+grid where the Session steps on K5) and the recovery scene of
+tests/test_torch_session.py (9 particles in one cell at cap 8), each of
+the two also stepped on to where the rebin trigger fires.  Every comparison is exact, on the float
 bits (``.view(torch.int32)``, which tells -0 from +0).
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
-from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
 from bevy_gpu_fluid_tpu_torch.ops import reslot
 from bevy_gpu_fluid_tpu_torch.ops.binning import FAR
 from bevy_gpu_fluid_tpu_torch.ops.reslot import block_kmax3, row_kmax, taps
 from bevy_gpu_fluid_tpu_torch.render import raster
+from torch_scenes import PARAMS, TILE_SCENES as SCENES, tile_scenes
 
 torch.set_num_threads(1)
-
-PARAMS = bt.FluidParams.demo()
-CFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5)
-GRID = vs.default_grid(0.045, -1.0, 2.5, y_max=6.0)
-RCFG = bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5, bounce=-0.5)
-RGRID = vs.default_grid(0.045, -1.0, 2.5, y_max=3.0)
-SCENES = ("init", "fused_rebin", "planar_rebin", "readmitted", "mono",
-          "need", "need_readmitted")
-
-
-def _kicked(steps, grid=GRID):
-    state = bt.init_grid(24, 24, 0.04, "cpu")
-    state = state.replace(vx=torch.full((state.n,), 2.0))
-    sess = vs.Session(state, PARAMS, CFG, grid, device="cpu")
-    sess.run(steps)
-    return sess
-
-
-def _shifted(sim, seed):
-    """The sim with live x moved by up to 0.01, so a rebin moves particles
-    between cells; its references stay."""
-    rng = np.random.default_rng(seed)
-    shift = torch.from_numpy(rng.uniform(-0.01, 0.01, sim.xd.shape)
-                             .astype(np.float32))
-    return dataclasses.replace(
-        sim, xd=torch.where(sim.xd < FAR * 0.5, sim.xd + shift, sim.xd))
-
-
-def _to_need(sess, sim):
-    """The DenseSim stepped on until the rebin trigger fires: the planes
-    the next rebin (K3, or K6 + K7) receives."""
-    for _ in range(200):
-        if sess._need(sim):
-            return sim
-        sim = sess._pure_step(sim)
-    raise AssertionError("the rebin trigger never fired")
-
 
 @pytest.fixture(scope="module")
 def scenes():
     """name -> (DenseSim, grid, cfg): the planes each premise is held on."""
-    out = {"init": (_kicked(0).sim, GRID, CFG)}
-    sess = _kicked(12)
-    out["need"] = (_to_need(sess, sess._pure_step(sess.sim)), GRID, CFG)
-    for name, planar in (("fused_rebin", False), ("planar_rebin", True)):
-        rebin = vs.make_step_parts(PARAMS, CFG, GRID, n=sess.n,
-                                   planar=planar)[1]
-        sim = rebin(_shifted(sess.sim, seed=3))
-        assert sim.rebin_count == sess.sim.rebin_count + 1
-        out[name] = (sim, GRID, CFG)
-    rsess = vs.Session(bt.init_grid(3, 3, 0.004, "cpu"), PARAMS, RCFG, RGRID,
-                       device="cpu")
-    assert rsess.suspended == 1
-    sim = rsess.sim
-    for _ in range(60):       # step until the rebin that readmits
-        if rsess._need(sim):
-            before = sim.readmitted
-            sim = rsess._rebin(sim)
-            if sim.readmitted > before:
-                break
-        sim = rsess._pure_step(sim)
-    assert sim.readmitted >= 1
-    out["readmitted"] = (sim, RGRID, RCFG)
-    out["need_readmitted"] = (_to_need(rsess, rsess._pure_step(sim)), RGRID,
-                              RCFG)
-    assert RGRID.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
-    out["mono"] = (_kicked(12, RGRID).sim, RGRID, CFG)   # stepped on K5
-    return out
+    return tile_scenes()
 
 
 def _live(sim):

@@ -1,11 +1,12 @@
 """The tiled CUDA kernels K1 (density), K2 (forces + integrate), K8 (forces
-alone), K5 (mono step), K4 (field raster) and K6 (select), and the
+alone), K5 (mono step), K4 (field raster) and K6 (select), the
 TMA-ring experiments T1 (K2 staged ahead) and T3 (K8 on slot-major
-planes), against variants of their design, on one NVIDIA GPU: K1, K2, K8,
-K4 (P = 2 and 5), K6 (int32 codes), T1 and T3 at the 1M-particle
-Session's planes (bench.py's dam break after 300 steps, as chip_smoke.py
-phase 3), K5 at the 10k grid of ``bench.py --fps`` after 100 steps (as
-chip_smoke.py phase 8).
+planes) and the walk-tile experiments T2 (K1 on slot-major planes) and T4
+(K8's arithmetic variants, v0 timed), against variants of their design, on
+one NVIDIA GPU: K1, K2, K8, K4 (P = 2 and 5), K6 (int32 codes), T1-T4 at
+the 1M-particle Session's planes (bench.py's dam break after 300 steps, as
+chip_smoke.py phase 3), K5 at the 10k grid of ``bench.py --fps`` after 100
+steps (as chip_smoke.py phase 8).
 
     python3 tools/torch_tile_study.py [variant ...]     # default: all
 
@@ -20,22 +21,31 @@ compute the same function, K1's max relative error against its twin on
 every slot and whether K2, K8, K5, K4 and K6 match their twins (K2 and
 K5: positions 1e-5, velocities 1e-4 of max |v|, dead slots bitwise; K5
 rho 1e-5 relative on live slots; K8 and T3 1e-5 of max |a|, dead slots
-+0; K4 1e-5 relative on wet pixels; K6 bitwise; T1 bitwise K2).
++0; K4 1e-5 relative on wet pixels; K6 bitwise; T1 bitwise K2; T2
+bitwise K1 after ``movedim``; T4 v0 bitwise K8).
 K4 runs its thread-per-cell kernel for P <= 4 and its halo-tile kernel
 for larger P: the ``field_*`` tile variants move only the P = 5 reading,
 and ``field_tile_only`` runs the tile kernel at every P.
 ``no_taps`` and ``no_dead`` (and ``field_no_taps``, ``select_no_scan``,
 ``select_no_write``) drop work and are timings only: what the tap
-loops and the dead-slot passes cost (``no_taps`` drops T1's and T3's taps
-too: T1 taps through ``bgf::tile_accel``).  ``t1_r2`` gives T1 2-row
+loops and the dead-slot passes cost (``no_taps`` drops T1's to T4's taps
+too: T1 taps through ``bgf::tile_accel``, T2 and T4 v0 through
+``bgf::walk_taps``).  ``t1_r2`` gives T1 2-row
 tiles at four blocks per SM (it spills at the 80 registers that leaves),
 ``t1_r2_u1`` the same with its slot loops not unrolled (no spill),
 ``t3_r4`` T3 4-row tiles at two blocks, and ``tma_tile`` both a block
-per tile in place of their persistent walk.  ``skip_far_taps`` (a branch per
-candidate past its cell's count) is K1's alone: K2's, K8's and K5's force
-taps share ``bgf::tile_accel``, which loops to the largest count.  The
-variants run in turns, ``--rounds`` times (2 by default), and the last
-line is one JSON object with every reading.
+per tile in place of their persistent walk.  The walk tile's A/B (T2 and
+T4, ``csrc/bgf_walk.cuh``): ``one_slot`` gives both back K1's and K8's
+thread per slot on the new tile and staging (the old loop: one slot a
+thread, every candidate below the largest of the 9 counts; the committed
+kernels take two slots of one cell a thread over the same candidates);
+``walk_r2`` 2 x 28-cell tiles (window stride 5), ``t4_128_threads``,
+``t4_5_blocks`` (T4 built for five blocks per SM) and ``t2_256_threads``
+other block shapes. ``skip_far_taps`` (a
+branch per candidate past its cell's count) is K1's alone: K2's, K8's and
+K5's force taps share ``bgf::tile_accel``, which loops to the largest
+count. The variants run in turns, ``--rounds`` times (2 by default), and
+the last line is one JSON object with every reading.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ _T1_REFS = "      for (int s = 0; s < kmax; ++s) {\n        // the box"
 _REPACK = "    for (int kj = 0; kj < kmax; ++kj) {\n      const int i = (wr"
 _T3_TAPS = ("      for (int kj = 0; kj < kb; ++kj) {\n#pragma unroll\n"
             "        for (int dy")            # T3's taps, (kj, dy, dx)
+_WALKS = ("exp_forces.cu", "exp_tlayout.cu")
 
 # variant -> [(file under csrc/, text, replacement)]
 VARIANTS = {
@@ -98,7 +109,8 @@ VARIANTS = {
     "skip_far_taps": [           # a branch per candidate past its count
         ("density.cu", _K1_TAP, _SKIP + "          const float2 w")],
     "no_taps": [(f, _TAPS, _TAPS.replace("kj < kb", "kj < 0"))
-                for f in ("density.cu", "bgf_common.cuh", "mono_step.cu")]
+                for f in ("density.cu", "bgf_common.cuh", "mono_step.cu",
+                          "bgf_walk.cuh")]
     + [("exp_tlayout.cu", _T3_TAPS, _T3_TAPS.replace("kj < kb", "kj < 0"))],
     "no_dead": [(f, _DEAD, _DEAD.replace("if (", "if (false && "))
                 for f in _STENCIL],
@@ -119,6 +131,17 @@ VARIANTS = {
               ("exp_tlayout.cu", "kMinBlocks = 4;", "kMinBlocks = 2;")],
     "tma_tile": [(f, _GRID, _GRID.replace("kMinBlocks,", "1 << 16,"))
                  for f in ("exp_dbuf.cu", "exp_tlayout.cu")],
+    # the walk tile's A/B (T2 and T4): one slot a thread (K1's and K8's
+    # loop); other block shapes
+    "one_slot": [("exp_forces.cu", "kSlots = 2;", "kSlots = 1;"),
+                 ("exp_tlayout.cu", "kDensitySlots = 2;",
+                  "kDensitySlots = 1;")],
+    "walk_r2": [(f, "WalkTile<4, 7>", "WalkTile<2, 5>") for f in _WALKS],
+    "t4_128_threads": [("exp_forces.cu", "kBlock = 256;", "kBlock = 128;")],
+    "t4_5_blocks": [("exp_forces.cu", "__launch_bounds__(kBlock)",
+                     "__launch_bounds__(kBlock, 5)")],
+    "t2_256_threads": [("exp_tlayout.cu", "kDensityBlock = 128;",
+                        "kDensityBlock = 256;")],
 }
 TIMING_ONLY = ("no_taps", "no_dead", "field_no_taps", "select_no_scan",
                "select_no_write")
@@ -220,6 +243,9 @@ slot_major = [ek.to_slot_major(p) for p in (s.xd, s.yd, s.vxd, s.vyd, rho)]
 t3 = lambda: ek.forces_t_cuda(*slot_major, params, grid,
                               ek.block_kmax3_t(slot_major[0], grid))
 got_t3 = [ek.from_slot_major(a) for a in t3()]
+t2 = lambda: ek.density_t_cuda(slot_major[0], slot_major[1], params, grid,
+                               ek.block_kmax3_t(slot_major[0], grid))
+t4 = lambda: ek.forces_variant_cuda(*f8, "v0")
 print(json.dumps(dict(
     k1_ms=device_ms(k1, "density_kernel"),
     k2_ms=device_ms(k2, "forces_integrate_kernel"),
@@ -230,6 +256,8 @@ print(json.dumps(dict(
     k6_ms=device_ms(k6, "select_kernel"),
     t1_ms=device_ms(t1, "dbuf_kernel"),
     t3_ms=device_ms(t3, "forces_t_kernel"),
+    t2_ms=device_ms(t2, "density_t_kernel"),
+    t4_ms=device_ms(t4, "forces_variant_kernel"),
     k1_rel=float(((got1 - rho).abs() / rho.abs().clamp_min(1e-30)).max()),
     k2_ok=step_ok(got2[:4], cuda_solver.forces_integrate_torch(*args)[:4],
                   dead),
@@ -242,6 +270,8 @@ print(json.dumps(dict(
     k4_ok=max(field_rel(2), field_rel(5)) <= 1e-5,
     k6_ok=all(torch.equal(g, w) for g, w in zip(k6(), want6)),
     t1_ok=all(torch.equal(bits(g), bits(w)) for g, w in zip(t1(), got2)),
+    t2_ok=torch.equal(bits(ek.from_slot_major(t2())), bits(got1)),
+    t4_ok=all(torch.equal(bits(g), bits(w)) for g, w in zip(t4(), got8)),
     t3_ok=bool(max(float((g - w).abs().max()) for g, w in zip(got_t3, want8))
                <= 1e-5 * a_scale
                and all(bool((bits(g[dead]) == 0).all()) for g in got_t3)),
@@ -249,7 +279,10 @@ print(json.dumps(dict(
                     for n in ("density", "forces_integrate", "forces",
                               "mono_step", "field", "select")},
                    dbuf=_build.occupancy("forces_integrate_dbuf", grid.cap),
-                   forces_t=_build.occupancy("forces_t", grid.cap)))))
+                   forces_t=_build.occupancy("forces_t", grid.cap),
+                   density_t=_build.occupancy("density_t", grid.cap),
+                   forces_variant=_build.occupancy("forces_variant",
+                                                   grid.cap, 0)))))
 '''
 
 
@@ -293,17 +326,21 @@ def main() -> None:
             occ = {n: (o["registers"], o["dynamic_smem"], o["blocks_per_sm"],
                        o["local_bytes"]) for n, o in r["occupancy"].items()}
             ok = all(r[k] for k in ("k2_ok", "k8_ok", "k5_ok", "k4_ok",
-                                    "k6_ok", "t1_ok", "t3_ok")) \
+                                    "k6_ok", "t1_ok", "t2_ok", "t3_ok",
+                                    "t4_ok")) \
                 and r["k1_rel"] <= 1e-5
             check = ("timing only" if v in TIMING_ONLY else
                      f"K1 rel {r['k1_rel']:.1e}, K2 / K8 / K5 / K4 / K6 / "
-                     f"T1 / T3 match {r['k2_ok']} / {r['k8_ok']} / "
-                     f"{r['k5_ok']} / {r['k4_ok']} / {r['k6_ok']} / "
-                     f"{r['t1_ok']} / {r['t3_ok']}")
+                     f"T1 / T2 / T3 / T4 match {r['k2_ok']} / "
+                     f"{r['k8_ok']} / {r['k5_ok']} / {r['k4_ok']} / "
+                     f"{r['k6_ok']} / {r['t1_ok']} / {r['t2_ok']} / "
+                     f"{r['t3_ok']} / {r['t4_ok']}")
             print(f"{v}: K1 {r['k1_ms']:.4f} ms, K2 {r['k2_ms']:.4f} ms, "
                   f"K8 {r['k8_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms (P = 2; "
                   f"P = 5 {r['k4p5_ms']:.4f}), K6 {r['k6_ms']:.4f} ms, T1 "
-                  f"{r['t1_ms']:.4f} ms, T3 {r['t3_ms']:.4f} ms (1M planes), "
+                  f"{r['t1_ms']:.4f} ms, T2 {r['t2_ms']:.4f} ms, T3 "
+                  f"{r['t3_ms']:.4f} ms, T4 v0 {r['t4_ms']:.4f} ms "
+                  f"(1M planes), "
                   f"K5 {r['k5_ms']:.4f} ms (10k); {check}; (registers, "
                   f"shared bytes, blocks/SM, spill) {occ}", flush=True)
             if v not in TIMING_ONLY and not ok:
