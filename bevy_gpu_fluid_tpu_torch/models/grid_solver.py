@@ -32,6 +32,7 @@ from ..ops import integrator
 from ..ops.binning import FAR, bin_particles, from_dense_multi, to_dense
 from ..ops.kernels import (eos_pressure, grad_spiky, laplacian_visc,
                            self_density, w_poly6)
+from ..utils.profiling import span
 
 OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
@@ -119,12 +120,14 @@ def compute_rho_p_acc(state: FluidState, params: FluidParams,
     """Density, EOS pressure and accelerations (gravity included) at the
     state's positions, through the given stencils; no integration."""
     density_fn, forces_fn = stencils
-    binned = bin_particles(state.x, state.y, grid)
-    xd = to_dense(binned, state.x, FAR)
-    yd = to_dense(binned, state.y, FAR)
+    # all four scatters ahead of the stencils: one span holds the binning
+    with span("bgf.binning"):
+        binned = bin_particles(state.x, state.y, grid)
+        xd = to_dense(binned, state.x, FAR)
+        yd = to_dense(binned, state.y, FAR)
+        vxd = to_dense(binned, state.vx, 0.0)
+        vyd = to_dense(binned, state.vy, 0.0)
     rho_d = density_fn(xd, yd, params)
-    vxd = to_dense(binned, state.vx, 0.0)
-    vyd = to_dense(binned, state.vy, 0.0)
     ax_d, ay_d = forces_fn(xd, yd, vxd, vyd, rho_d, params)
     rho, ax, ay = from_dense_multi(binned, [rho_d, ax_d, ay_d],
                                    [float(self_density(params)), 0.0, 0.0])
@@ -138,11 +141,13 @@ def step_with_diag(state: FluidState, params: FluidParams,
                    stencils=XLA_STENCILS) -> tuple[FluidState, StepDiag]:
     """One full step (bin, density, pressure, forces, integrate, bounce)
     and its diagnostics."""
-    state, diag = compute_rho_p_acc(state, params, grid, stencils)
-    x, y, vx, vy = integrator.euler(state.x, state.y, state.vx, state.vy,
-                                    state.ax, state.ay, cfg.dt)
-    x, y, vx, vy = integrator.boundaries(x, y, vx, vy, cfg)
-    return state.replace(x=x, y=y, vx=vx, vy=vy, step=state.step + 1), diag
+    with span("bgf.step"):
+        state, diag = compute_rho_p_acc(state, params, grid, stencils)
+        x, y, vx, vy = integrator.euler(state.x, state.y, state.vx,
+                                        state.vy, state.ax, state.ay, cfg.dt)
+        x, y, vx, vy = integrator.boundaries(x, y, vx, vy, cfg)
+        return (state.replace(x=x, y=y, vx=vx, vy=vy, step=state.step + 1),
+                diag)
 
 
 def step(state: FluidState, params: FluidParams, cfg: IntegrateConfig,

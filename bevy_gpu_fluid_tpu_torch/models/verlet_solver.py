@@ -69,6 +69,7 @@ from ..ops.binning import (FAR, bin_particles, cell_coords, cell_index,
                            inv_cell, stable_rank, to_dense)
 from ..ops.kernels import eos_pressure, self_density
 from ..render import raster
+from ..utils.profiling import span
 from . import cuda_solver
 from .grid_solver import StepDiag
 
@@ -401,7 +402,8 @@ def _spill_admit(xd, yd, vxd, vyd, idx_d, cnt,
     for plane, vals in ((xd, sx), (yd, sy), (vxd, svx), (vyd, svy),
                         (idx_d, sidx)):
         plane[r, s, c] = vals[admit]
-    readmitted = readmitted + int(admit.sum())
+    with span("bgf.read.readmit"):
+        readmitted = readmitted + int(admit.sum())
     sx = torch.where(admit, FAR, sx)
     sy = torch.where(admit, FAR, sy)
     svx = torch.where(admit, 0.0, svx)
@@ -485,10 +487,11 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
     def host_counts(xd, cnt, sidx):
         """(alive_before, matched, captured) and whether recovery runs (a
         particle lost its slot, or the spill buffer holds one): one sync."""
-        alive_before, matched, captured, spilled = torch.stack([
-            (xd < FAR * 0.5).sum(), cnt.sum(),
-            torch.clamp_max(cnt, grid.cap).sum(),
-            (sidx >= 0).any().long()]).tolist()
+        with span("bgf.read.rebin_counts"):
+            alive_before, matched, captured, spilled = torch.stack([
+                (xd < FAR * 0.5).sum(), cnt.sum(),
+                torch.clamp_max(cnt, grid.cap).sum(),
+                (sidx >= 0).any().long()]).tolist()
         return ((alive_before, matched, captured),
                 n is not None and (alive_before - captured > 0 or spilled))
 
@@ -516,45 +519,49 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                         readmitted=readmitted)
 
     def rebin(sim: DenseSim) -> DenseSim:
-        old = (sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d)
-        *planes, cnt = reslot(*old)
-        stats, recover = host_counts(sim.xd, cnt, sim.sidx)
-        spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
-        if recover:
-            dropped = (sim.idx_d >= 0) & ~_found_in_window(sim.idx_d,
-                                                          planes[4])
-            spill = _spill_collect(dropped, old, spill)
-        return rebinned(sim, planes, cnt, stats, spill, recover)
+        with span("bgf.rebin"):
+            old = (sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d)
+            *planes, cnt = reslot(*old)
+            stats, recover = host_counts(sim.xd, cnt, sim.sidx)
+            spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
+            if recover:
+                dropped = (sim.idx_d >= 0) & ~_found_in_window(sim.idx_d,
+                                                              planes[4])
+                spill = _spill_collect(dropped, old, spill)
+            return rebinned(sim, planes, cnt, stats, spill, recover)
 
     def rebin_planar(sim: DenseSim) -> DenseSim:
-        old = [sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d]
-        # the rebin owns the planes: with no reference left in ``sim``, the
-        # reference planes die now and each old plane once its copy exists
-        sim.xd = sim.yd = sim.vxd = sim.vyd = sim.idx_d = None
-        sim.ref_xd = sim.ref_yd = None
-        try:
-            code, cnt = reslot_ops.select_cuda(old[0], old[1], grid, sim.occ,
-                                               code_dtype)
-            stats, recover = host_counts(old[0], cnt, sim.sidx)
-            spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
-            if recover:     # collect before the applies free the old planes
-                dropped = ((old[4] >= 0)
-                           & ~reslot_ops.taken_mask(code, grid.cap))
-                spill = _spill_collect(dropped, old, spill)
-                del dropped
-            planes = reslot_ops.apply_planes(old, code, sim.occ, grid)
-        except BaseException as exc:
-            if any(p is None for p in old):
-                raise RuntimeError(
-                    "planar rebin failed after consuming input planes; the "
-                    "DenseSim is lost (Session.reset restarts it)") from exc
-            # nothing consumed: hand the planes back.  The rebin is still
-            # due, so the next step rebins before it reads the references.
-            sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d = old
-            sim.ref_xd, sim.ref_yd = fresh_refs(old[0], old[1])
-            raise
-        del code
-        return rebinned(sim, planes, cnt, stats, spill, recover)
+        with span("bgf.rebin"):
+            old = [sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d]
+            # the rebin owns the planes: with no reference left in ``sim``,
+            # the reference planes die now and each old plane once its copy
+            # exists
+            sim.xd = sim.yd = sim.vxd = sim.vyd = sim.idx_d = None
+            sim.ref_xd = sim.ref_yd = None
+            try:
+                code, cnt = reslot_ops.select_cuda(old[0], old[1], grid,
+                                                   sim.occ, code_dtype)
+                stats, recover = host_counts(old[0], cnt, sim.sidx)
+                spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
+                if recover:   # collect before the applies free the old planes
+                    dropped = ((old[4] >= 0)
+                               & ~reslot_ops.taken_mask(code, grid.cap))
+                    spill = _spill_collect(dropped, old, spill)
+                    del dropped
+                planes = reslot_ops.apply_planes(old, code, sim.occ, grid)
+            except BaseException as exc:
+                if any(p is None for p in old):
+                    raise RuntimeError(
+                        "planar rebin failed after consuming input planes; "
+                        "the DenseSim is lost (Session.reset restarts it)"
+                    ) from exc
+                # nothing consumed: hand the planes back.  The rebin is still
+                # due, so the next step rebins before it reads the references.
+                sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d = old
+                sim.ref_xd, sim.ref_yd = fresh_refs(old[0], old[1])
+                raise
+            del code
+            return rebinned(sim, planes, cnt, stats, spill, recover)
 
     def need(sim: DenseSim) -> bool:
         """Rebin before this step's kernels: a particle outran half the
@@ -563,7 +570,9 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
         host."""
         if sim.age >= max_age:
             return True
-        return float(sim.disp2) > (float(skin_half) if refless else skin2)
+        with span("bgf.read.trigger"):
+            return float(sim.disp2) > (float(skin_half) if refless
+                                       else skin2)
 
     def pure_step(sim: DenseSim) -> DenseSim:
         if mono:
@@ -705,9 +714,10 @@ def step_until(sim: DenseSim, k: int, pure_step, need):
     done = 0
     pending = need(sim)
     while done < k and not pending:
-        sim = pure_step(sim)
+        with span("bgf.step"):
+            sim = pure_step(sim)
+            pending = need(sim)
         done += 1
-        pending = need(sim)
     return sim, done, pending
 
 
@@ -902,9 +912,10 @@ class Session:
 
     def _run(self, n_steps: int) -> None:
         for _ in range(n_steps):
-            if self._need(self.sim):
-                self.sim = self._rebin(self.sim)
-            self.sim = self._pure_step(self.sim)
+            with span("bgf.step"):
+                if self._need(self.sim):
+                    self.sim = self._rebin(self.sim)
+                self.sim = self._pure_step(self.sim)
 
     def frame(self, px_per_cell: int = 2,
               mode: str = "density") -> torch.Tensor:

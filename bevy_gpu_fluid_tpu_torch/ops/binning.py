@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.params import GridSpec2D
+from ..utils.profiling import span
 
 FAR = 1.0e9  # empty-slot sentinel for position fields
 
@@ -100,7 +101,8 @@ def bin_particles(x: torch.Tensor, y: torch.Tensor,
     """Bin N particles: clamped cell coords, their ``stable_order``."""
     cx, cy = cell_coords(x, y, grid)
     perm, rank = stable_order(cx + cy * grid.nx)
-    overflow = int((rank >= grid.cap).sum())
+    with span("bgf.read.overflow"):
+        overflow = int((rank >= grid.cap).sum())
     return Binned(cx=cx, cy=cy, rank=rank, overflow=overflow, grid=grid,
                   perm=perm)
 

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 class FramePump:
     """Double-buffered frame consumption (one frame of latency)."""
@@ -34,24 +36,27 @@ class FramePump:
         self._pending = None   # (frame or host buffer, CUDA event or None)
 
     def _start(self, img):
-        if not (isinstance(img, torch.Tensor) and img.is_cuda):
-            return img, None
-        if self.pull:
-            buf = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
-            buf.copy_(img, non_blocking=True)
-            img = buf
-        event = torch.cuda.Event()
-        event.record()
-        return img, event
+        with span("bgf.pump.copy"):
+            if not (isinstance(img, torch.Tensor) and img.is_cuda):
+                return img, None
+            if self.pull:
+                buf = torch.empty(img.shape, dtype=img.dtype,
+                                  pin_memory=True)
+                buf.copy_(img, non_blocking=True)
+                img = buf
+            event = torch.cuda.Event()
+            event.record()
+            return img, event
 
     def _finish(self, pending):
-        img, event = pending
-        if event is not None:
-            event.synchronize()
-        if not self.pull:
-            return img
-        return img.numpy() if isinstance(img, torch.Tensor) \
-            else np.asarray(img)
+        with span("bgf.pump.wait"):
+            img, event = pending
+            if event is not None:
+                event.synchronize()
+            if not self.pull:
+                return img
+            return img.numpy() if isinstance(img, torch.Tensor) \
+                else np.asarray(img)
 
     def push(self, img):
         """Submit frame k; returns frame k-1 fully materialized (or None on

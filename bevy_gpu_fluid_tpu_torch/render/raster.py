@@ -37,6 +37,7 @@ from ..kernels import _build
 from ..models.cuda_solver import _density_consts, density_sum
 from ..ops.kernels import w_poly6
 from ..ops.reslot import block_kmax3, row_kmax, taps
+from ..utils.profiling import span
 
 CYAN = (0.0, 1.0, 1.0)
 _f32 = np.float32
@@ -264,6 +265,7 @@ def field_frame(xd, yd, params: FluidParams, grid: GridSpec2D,
                 rho_hi: float | None = None) -> torch.Tensor:
     """Finished uint8 frame [ny*P, nx*P, 3] (row 0 = TOP) straight from the
     dense slot planes; quantization and the row flip run per plane."""
-    planes = _field_planes(xd, yd, params, grid, px_per_cell, mode, rho_lo,
-                           rho_hi)
-    return torch.stack([_quantize(p) for p in planes], dim=-1)
+    with span("bgf.raster"):
+        planes = _field_planes(xd, yd, params, grid, px_per_cell, mode,
+                               rho_lo, rho_hi)
+        return torch.stack([_quantize(p) for p in planes], dim=-1)

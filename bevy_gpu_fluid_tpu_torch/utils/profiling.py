@@ -7,6 +7,13 @@ them, so the timer synchronises the device of the result it is handed (a
 no-op for CPU tensors) before it reads the clock.  ``trace`` records a
 ``torch.profiler`` trace (host and, where a card is present, device
 activity) and writes it as a Chrome trace for kernel-level attribution.
+
+``span(name)`` marks host work inside the program (the ``bgf.*`` ranges:
+a step, its trigger read, a rebin, the eager binning, the raster, the
+frame pump) as a host range on the profiler's clock, beside the kernels
+those ranges launch.  It records only while a profiler is recording
+(``trace``, or any ``torch.profiler`` the caller runs); otherwise it costs
+one check.
 """
 
 from __future__ import annotations
@@ -18,6 +25,20 @@ import tempfile
 import time
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range named ``name`` while a profiler is recording on this
+    thread; otherwise one shared null context.  The range is a function
+    scope one (``_RecordFunctionFast``), not a ``record_function`` user
+    annotation: the profiler projects a user annotation onto the device
+    as a range over the kernels it launched, which a trace would read as
+    device work."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 def _devices(result) -> set:
@@ -64,14 +85,6 @@ class StepTimer:
         block_until_ready(result)
         self.seconds += time.perf_counter() - t0
         self.steps += n_steps
-
-    def time_block(self, fn, *args):
-        """Run fn(*args) -> result and add its time, the result's devices
-        synchronised; the call counts no steps (add them to ``steps``)."""
-        t0 = time.perf_counter()
-        out = block_until_ready(fn(*args))
-        self.seconds += time.perf_counter() - t0
-        return out
 
     @property
     def steps_per_sec(self) -> float:
