@@ -1,8 +1,9 @@
 """Sort-based spatial-hash binning (port of
 ``bevy_gpu_fluid_tpu/ops/binning.py``, the ``with_csr=False`` path).
 
-A stable argsort orders particles by cell id, within-cell ranks fall out of
-a segment-relative cummax over the sorted ids, and one scatter returns the
+A stable argsort orders particles by cell id, a particle's within-cell rank
+is its sorted position less its cell's first sorted position (a binary
+search of the sorted ids for their own values), and one scatter returns the
 ranks to original particle order — so within-cell order is original-index
 order, bit for bit the reference package's slot assignment.
 
@@ -76,21 +77,21 @@ def cell_ids(x: torch.Tensor, y: torch.Tensor, grid: GridSpec2D,
 
 def stable_rank(cid: torch.Tensor) -> torch.Tensor:
     """Within-group rank of each element of ``cid`` (int64 [n], original
-    order): a stable sort by id, ranks from a segment cummax, one scatter
+    order): a stable sort by id, ranks from each run's start, one scatter
     back, so equal ids rank in original-index order."""
     return stable_order(cid)[1]
 
 
 def stable_order(cid: torch.Tensor):
     """(perm, rank): ``stable_rank``'s sort order (the original index of
-    the i-th element by id) and its ranks."""
-    n = cid.shape[0]
+    the i-th element by id) and its ranks.  With the ids sorted, the
+    leftmost position of each one's own value is the start of its run: a
+    binary search a query, all in parallel (not a running max: PyTorch
+    scans a 1-D tensor in one block)."""
     perm = torch.argsort(cid, stable=True)
     sorted_cell = cid[perm]
-    pos = torch.arange(n, device=cid.device)
-    is_new = torch.ones(n, dtype=torch.bool, device=cid.device)
-    is_new[1:] = sorted_cell[1:] != sorted_cell[:-1]
-    seg_start = torch.cummax(torch.where(is_new, pos, -1), dim=0).values
+    pos = torch.arange(cid.shape[0], device=cid.device)
+    seg_start = torch.searchsorted(sorted_cell, sorted_cell)
     rank = torch.empty_like(pos)
     rank[perm] = pos - seg_start
     return perm, rank

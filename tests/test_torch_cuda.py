@@ -42,7 +42,8 @@ from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import exp_kernels as ek
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
 from bevy_gpu_fluid_tpu_torch.ops import reslot
-from bevy_gpu_fluid_tpu_torch.ops.binning import FAR, bin_particles, to_dense
+from bevy_gpu_fluid_tpu_torch.ops.binning import (FAR, bin_particles, cell_ids,
+                                                  stable_order, to_dense)
 from bevy_gpu_fluid_tpu_torch.render import raster
 from bevy_gpu_fluid_tpu_torch.render.pump import FramePump
 
@@ -475,6 +476,36 @@ def test_forces_kernel_on_eager_planes(cuda):
     occ = reslot.block_kmax3(xd, grid)
     rho = cuda_solver.density_cuda(xd, yd, PARAMS, grid, occ)
     _forces_matches(xd, yd, vxd, vyd, rho, grid, occ)
+
+
+def test_stable_order_on_card_bitwise_cpu_without_scan(cuda):
+    """``stable_order`` of a jittered 1M lattice's cell ids on the card is
+    the CPU's bit for bit, and its trace holds no scan kernel (PyTorch's
+    1-D ``cummax`` runs in one block)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(19)
+    side = 1000
+    i = torch.arange(side * side)
+    jit = (torch.rand((2, side * side), generator=gen) - 0.5) * 8e-4
+    x = ((i % side) * 0.04 + jit[0]).float()
+    y = ((i // side) * 0.04 + 0.02 + jit[1]).float()
+    grid = vs.default_grid(0.045, -1.0, 41.0, y_max=45.0)
+    cid = cell_ids(x, y, grid)
+    want = stable_order(cid)
+    cid_d = cid.to(cuda)
+    stable_order(cid_d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = stable_order(cid_d)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels, "the profiler saw no device work"
+    assert not [k for k in kernels
+                if "scan_innermost_dim_with_indices" in k], kernels
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,8 @@ import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as tvs
 from bevy_gpu_fluid_tpu_torch.ops import reslot as treslot
+from bevy_gpu_fluid_tpu_torch.ops.binning import (bin_particles, cell_ids,
+                                                  stable_rank)
 from bevy_gpu_fluid_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -149,6 +151,89 @@ def test_init_dense_matches():
     assert got.overflow == int(want.overflow) >= 4
     assert got.suspended == int(jnp.sum(want.sidx >= 0)) >= 4
     assert got.rebin_count == 1 and got.idx_d.dtype == torch.int32
+
+
+def _cell_centres(cells, rng):
+    """float32 (x, y) near the centres of the given linear cells of GRID."""
+    cells = np.asarray(cells)
+    cx, cy = cells % GRID.nx, cells // GRID.nx
+    x = GRID.origin_x + (cx + rng.uniform(0.49, 0.51, cells.size)
+                         ) * GRID.cell_size
+    y = GRID.origin_y + (cy + rng.uniform(0.49, 0.51, cells.size)
+                         ) * GRID.cell_size
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def _binning_scene(case):
+    """float32 positions (x, y) for one binning case."""
+    rng = np.random.default_rng(11)
+    last = GRID.num_cells - 1
+    if case == "lattice":
+        s = jittered_state(seed=3)
+        return np.asarray(s.x), np.asarray(s.y)
+    if case == "crowded":
+        s = jittered_state(seed=4)
+        crowd = bgf.init_grid(3, 4, 0.004)
+        return (np.concatenate([np.asarray(s.x), np.asarray(crowd.x) + 0.3]),
+                np.concatenate([np.asarray(s.y), np.asarray(crowd.y) + 0.3]))
+    if case == "corner":          # past the grid on both axes: one cell
+        return (rng.uniform(3.0, 6.0, 40).astype(np.float32),
+                rng.uniform(4.0, 9.0, 40).astype(np.float32))
+    if case == "single":
+        return np.float32([0.5]), np.float32([0.5])
+    if case == "runs":            # 30 runs of one and a run of 20
+        cells = np.concatenate([rng.choice(last, 30, replace=False),
+                                np.full(20, 700)])
+        return _cell_centres(rng.permutation(cells), rng)
+    if case == "ends":            # the first and the last cell
+        cells = np.concatenate([np.tile([0, last], 10), [1, 1300, last - 1]])
+        return _cell_centres(rng.permutation(cells), rng)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["lattice", "crowded", "corner", "single",
+                                  "runs", "ends"])
+def test_bin_particles_bitwise(case):
+    """The port's sort binning gives the JAX package's order, ranks, cell
+    coordinates and overflow exactly, runs past ``cap`` included."""
+    x, y = _binning_scene(case)
+    want = jbin(jnp.asarray(x), jnp.asarray(y), GRID, with_csr=False)
+    got = bin_particles(_t(x), _t(y), GRID_T)
+    for name in ("perm", "rank", "cx", "cy"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert got.overflow == int(want.overflow)
+    if case in ("crowded", "corner", "runs"):
+        assert got.overflow > 0
+
+
+def test_stable_rank_with_dead_entries():
+    """``stable_rank`` on the chunked init's ids (dead entries in the void
+    cell ``num_cells``) is the JAX package's rank with ``alive``."""
+    x, y = _binning_scene("crowded")
+    valid = np.random.default_rng(5).uniform(size=x.size) > 0.3
+    want = jbin(jnp.asarray(x), jnp.asarray(y), GRID,
+                alive=jnp.asarray(valid), with_csr=False)
+    cid = torch.where(_t(valid), cell_ids(_t(x), _t(y), GRID_T),
+                      GRID_T.num_cells)
+    np.testing.assert_array_equal(stable_rank(cid).numpy(),
+                                  np.asarray(want.rank))
+
+
+def test_binning_runs_no_scan(monkeypatch):
+    """The binning and the eager steps call no ``cummax``: a 1-D scan runs
+    on the card in one block."""
+    from bevy_gpu_fluid_tpu_torch.models import grid_solver
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cummax called")
+    monkeypatch.setattr(torch, "cummax", refuse)
+    monkeypatch.setattr(torch.Tensor, "cummax", refuse)
+    st = convert.state_from(_np(jittered_state(seed=8, side=12)), "cpu")
+    assert bin_particles(st.x, st.y, GRID_T).overflow == 0
+    for solver in (cuda_solver, grid_solver):
+        assert solver.step(st, PARAMS, CFG, GRID_T).step == st.step + 1
 
 
 def test_block_kmax3_matches(dense_pair):
@@ -340,8 +425,7 @@ def test_gather_slots_and_state_builders_match(dense_pair):
     package's (overflowed particles get the fallback); from_positions and
     make_state build the same scenes."""
     from bevy_gpu_fluid_tpu.ops.binning import gather_slots as jgather
-    from bevy_gpu_fluid_tpu_torch.ops.binning import (bin_particles,
-                                                      gather_slots)
+    from bevy_gpu_fluid_tpu_torch.ops.binning import gather_slots
     sj = jittered_state(seed=6)
     bj = jbin(sj.x, sj.y, GRID, with_csr=False)
     fields = [jto_dense(bj, sj.x, fill=1e9), jto_dense(bj, sj.vy)]
