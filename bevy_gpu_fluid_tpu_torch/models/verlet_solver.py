@@ -335,6 +335,18 @@ def _skin(params: FluidParams, grid: GridSpec2D) -> np.float32:
 _FILLS = reslot_ops.PLANE_FILLS   # empty x, y, vx, vy, idx slots
 
 
+def live_slots(xd: torch.Tensor) -> torch.Tensor:
+    """The live slots of a position plane (below FAR / 2), a 0-dim int64
+    tensor, counted in row slabs (``reslot.slab_rows``): a bool plane's sum
+    first copies it to int64, two plane-footprints in one pass, which at
+    the memory ceiling (779M particles on an 80 GB H100) sent a rebin into
+    the allocator's free-and-retry path, 0.5-1.6 s, or out of memory."""
+    rows = reslot_ops.slab_rows(xd.shape)
+    parts = [(xd[r:r + rows] < FAR * 0.5).sum()
+             for r in range(0, xd.shape[0], rows)]
+    return parts[0] if len(parts) == 1 else torch.stack(parts).sum()
+
+
 def _found_in_window(pidx_d: torch.Tensor, idx_d: torch.Tensor):
     """Per pre-rebin slot: is its particle index present in the 3x3 cell
     window of its slot in the post-rebin idx plane?  (The fused rebin's
@@ -489,7 +501,7 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
         particle lost its slot, or the spill buffer holds one): one sync."""
         with span("bgf.read.rebin_counts"):
             alive_before, matched, captured, spilled = torch.stack([
-                (xd < FAR * 0.5).sum(), cnt.sum(),
+                live_slots(xd), cnt.sum(),
                 torch.clamp_max(cnt, grid.cap).sum(),
                 (sidx >= 0).any().long()]).tolist()
         return ((alive_before, matched, captured),
@@ -539,16 +551,19 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
             sim.xd = sim.yd = sim.vxd = sim.vyd = sim.idx_d = None
             sim.ref_xd = sim.ref_yd = None
             try:
-                code, cnt = reslot_ops.select_cuda(old[0], old[1], grid,
-                                                   sim.occ, code_dtype)
-                stats, recover = host_counts(old[0], cnt, sim.sidx)
-                spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
-                if recover:   # collect before the applies free the old planes
-                    dropped = ((old[4] >= 0)
-                               & ~reslot_ops.taken_mask(code, grid.cap))
-                    spill = _spill_collect(dropped, old, spill)
-                    del dropped
-                planes = reslot_ops.apply_planes(old, code, sim.occ, grid)
+                with span("bgf.rebin.select"):
+                    code, cnt = reslot_ops.select_cuda(old[0], old[1], grid,
+                                                       sim.occ, code_dtype)
+                    stats, recover = host_counts(old[0], cnt, sim.sidx)
+                    spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
+                    if recover:   # collect before the applies free the planes
+                        dropped = ((old[4] >= 0)
+                                   & ~reslot_ops.taken_mask(code, grid.cap))
+                        spill = _spill_collect(dropped, old, spill)
+                        del dropped
+                with span("bgf.rebin.apply"):
+                    planes = reslot_ops.apply_planes(old, code, sim.occ,
+                                                     grid)
             except BaseException as exc:
                 if any(p is None for p in old):
                     raise RuntimeError(

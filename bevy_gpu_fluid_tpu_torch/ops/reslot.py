@@ -57,10 +57,15 @@ from .binning import FAR, cell_index, inv_cell
 
 def _occ_row(xd: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
     """Max occupied slot index + 1 per cell row, int32 [ny_pad], read off
-    the FAR sentinel."""
+    the FAR sentinel, in row slabs (``slab_rows``): in one pass its int32
+    temporary is a whole plane, at the memory ceiling a plane-footprint
+    beside every rebin's planes."""
     k1 = torch.arange(1, grid.cap + 1, dtype=torch.int32,
                       device=xd.device)[None, :, None]
-    return torch.where(xd < FAR * 0.5, k1, 0).amax(dim=(1, 2))
+    rows = slab_rows(xd.shape)
+    parts = [torch.where(xd[r:r + rows] < FAR * 0.5, k1, 0).amax(dim=(1, 2))
+             for r in range(0, xd.shape[0], rows)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def block_kmax3(xd: torch.Tensor, grid: GridSpec2D) -> torch.Tensor:
@@ -395,11 +400,12 @@ apply_code_cuda.launches = 0
 apply_code_cuda.launches_out = 0
 
 
-# Whole-plane torch passes with many temporaries (``taken_mask`` here,
-# ``cuda_solver.integrate_into``) run in SLABS row slabs on planes of more
-# than SLAB_MIN elements, so their temporaries are a fixed share of a
-# plane at every size, and in one pass on smaller planes (no extra
-# launches at 1M).
+# Whole-plane torch passes with many temporaries (``taken_mask`` and
+# ``block_kmax3`` here, ``cuda_solver.integrate_into``, the rebin's count
+# of live slots, ``verlet_solver.live_slots``) run in SLABS row slabs on
+# planes of more than SLAB_MIN elements, so their temporaries are a fixed
+# share of a plane at every size, and in one pass on smaller planes (no
+# extra launches at 1M).
 SLABS = 16
 SLAB_MIN = 1 << 24
 

@@ -193,6 +193,26 @@ def test_integrate_into_bitwise_integrate(moved, monkeypatch, refless):
         assert torch.equal(g, w)
 
 
+def test_rebin_counts_in_slabs_bitwise(moved, monkeypatch):
+    """The rebin's live-slot count and slot-loop bounds taken in row slabs
+    (planes of more than ``reslot.SLAB_MIN`` elements, the ceiling's) are
+    one pass's, and so is a ceiling-posture run that rebins."""
+    s = moved
+    count, occ = int((s.xd < 5e8).sum()), reslot.block_kmax3(s.xd, SLICE)
+    kw = dict(device="cpu", refless_trigger=True, planar_rebin=True,
+              donate=True)
+    one = tvs.Session(_port_state(_kicked()), PARAMS, CFG, SLICE, **kw)
+    one.run(16)
+    monkeypatch.setattr(reslot, "SLAB_MIN", 0)    # slabs even at this size:
+    monkeypatch.setattr(reslot, "SLABS", 5)       # 23 rows, a ragged last
+    assert int(tvs.live_slots(s.xd)) == count
+    assert torch.equal(reslot.block_kmax3(s.xd, SLICE), occ)
+    slabs = tvs.Session(_port_state(_kicked()), PARAMS, CFG, SLICE, **kw)
+    slabs.run(16)
+    assert slabs.sim.rebin_count >= 2
+    _sims_bitwise(one.sim, slabs.sim)
+
+
 # ----------------------------------------------------------- K2 refless
 
 def test_forces_integrate_refless_twin_matches_pallas():

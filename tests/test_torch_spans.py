@@ -20,17 +20,23 @@ from bevy_gpu_fluid_tpu_torch.ops import binning
 from bevy_gpu_fluid_tpu_torch.render import pump, raster
 from bevy_gpu_fluid_tpu_torch.utils import profiling
 
-NAMES = {"bgf.step", "bgf.read.trigger", "bgf.rebin",
-         "bgf.read.rebin_counts", "bgf.read.readmit", "bgf.binning",
-         "bgf.read.overflow", "bgf.raster", "bgf.pump.copy", "bgf.pump.wait"}
+NAMES = {"bgf.step", "bgf.read.trigger", "bgf.rebin", "bgf.rebin.select",
+         "bgf.rebin.apply", "bgf.read.rebin_counts", "bgf.read.readmit",
+         "bgf.binning", "bgf.read.overflow", "bgf.raster", "bgf.pump.copy",
+         "bgf.pump.wait"}
 STEPS = 12
 # (Session options, lattice spacing, grid capacity): recovery's lattice at
 # half the spacing overflows its cells of 2 slots, then spreads, so its
-# rebins (every step or two) re-admit spilled particles
+# rebins (every step or two) re-admit spilled particles; the memory
+# ceiling's posture (refless trigger, planar rebin, owned planes) on the
+# same lattice, so its planar rebins collect and re-admit too
+CEILING = {"planar_rebin": True, "refless_trigger": True, "donate": True}
 POSTURES = {"default": ({"max_age": 4}, 0.04, 8),
             "planar": ({"max_age": 4, "planar_rebin": True}, 0.04, 8),
             "segmented": ({"max_age": 4, "segmented": True}, 0.04, 8),
-            "recovery": ({"max_age": 4}, 0.02, 2)}
+            "recovery": ({"max_age": 4}, 0.02, 2),
+            "ceiling": ({"max_age": 4, **CEILING}, 0.02, 2)}
+PLANAR = ("planar", "ceiling")
 SPANNED = (vs, grid_solver, binning, raster, pump)
 
 
@@ -99,8 +105,19 @@ def test_session_spans_count_steps_reads_and_rebins(posture):
                    _spans(ev, "bgf.rebin"))
     readmits = _spans(ev, "bgf.read.readmit")
     assert _inside(readmits, _spans(ev, "bgf.rebin"))
-    if posture == "recovery":
+    if posture in ("recovery", "ceiling"):
         assert sess.sim.readmitted > readmitted and readmits
+    # the planar rebin's two phases, once a rebin each, inside it and one
+    # after the other; the counter read in the routing phase
+    select = _spans(ev, "bgf.rebin.select")
+    apply = _spans(ev, "bgf.rebin.apply")
+    assert len(select) == len(apply) == (rebins if posture in PLANAR else 0)
+    assert _inside(select, _spans(ev, "bgf.rebin"))
+    assert _inside(apply, _spans(ev, "bgf.rebin"))
+    if posture in PLANAR:
+        assert _inside(_spans(ev, "bgf.read.rebin_counts"), select)
+        assert all(s[1] <= a[0] for s, a in zip(sorted(select),
+                                                sorted(apply)))
     if posture != "segmented":
         # the step's check reads once unless the bins aged out
         assert sum(reads) == sum(a < max_age for a in ages)
@@ -111,7 +128,8 @@ def _read_spans(ev) -> list:
     return [(s, e) for n, s, e in ev if n.startswith("bgf.read.")]
 
 
-@pytest.mark.parametrize("posture", ["default", "planar", "recovery"])
+@pytest.mark.parametrize("posture", ["default", "planar", "recovery",
+                                     "ceiling"])
 def test_every_read_lies_inside_a_step(posture):
     sess = _session(posture)
     _, ev = _traced(lambda: sess.run(STEPS))
@@ -193,7 +211,7 @@ def _outputs(posture: str) -> dict:
 
 
 @pytest.mark.parametrize("posture", ["default", "planar", "recovery",
-                                     "eager"])
+                                     "ceiling", "eager"])
 def test_traced_and_untraced_runs_are_bitwise_equal(posture):
     plain = _outputs(posture)
     traced, _ = _traced(lambda: _outputs(posture))
@@ -210,8 +228,9 @@ def test_spans_add_no_torch_operation(monkeypatch):
                                    if not n.startswith("bgf."))
 
     def work():
-        sess = _session("recovery")
-        sess.run(STEPS)
+        for posture in ("recovery", "ceiling"):
+            sess = _session(posture)
+            sess.run(STEPS)
         fp = pump.FramePump(pull=True)
         fp.push(sess.frame())
         fp.flush()
