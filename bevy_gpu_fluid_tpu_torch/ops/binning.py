@@ -11,6 +11,12 @@ Dense layout ``[ny_pad, cap, nx_pad]`` with the reference's ghost border;
 empty position slots hold the ``FAR`` sentinel so every pair test against
 them fails the r^2 < h^2 gate.  Particles ranked beyond ``cap`` overflow:
 they get no slot and are counted.
+
+A binning addresses the dense planes by one flat slot index a particle,
+computed once and shared by every scatter and gather, so neither takes a
+boolean mask (a mask index is a ``nonzero``: a host sync on the card).  A
+dropped particle's index is 0, lane 0 of row 0: a ghost slot of every
+plane, which always holds the plane's fill.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ class Binned:
     ``cx``/``cy`` and within-cell ``rank`` (int64[N]), plus ``overflow``,
     the host count of particles ranked at or beyond ``cap``; ``perm``
     (int64[N], ``bin_particles`` only) is the sort's order, the original
-    index of the i-th particle by cell."""
+    index of the i-th particle by cell.  ``keep`` (``rank < cap``) and
+    ``slot`` (``slot_index``) are derived once, at construction."""
 
     cx: torch.Tensor
     cy: torch.Tensor
@@ -40,6 +47,21 @@ class Binned:
     overflow: int
     grid: GridSpec2D
     perm: torch.Tensor | None = None
+    keep: torch.Tensor = dataclasses.field(init=False)
+    slot: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.keep = self.rank < self.grid.cap
+        self.slot = slot_index(self.grid, self.cx, self.cy, self.rank,
+                               self.keep)
+
+
+def slot_index(grid: GridSpec2D, cx, cy, rank, keep) -> torch.Tensor:
+    """Flat index into a contiguous [ny_pad, cap, nx_pad] plane of each
+    particle's slot (row ``cy + row0``, slot ``rank``, lane ``cx + 1``);
+    0 (lane 0 of row 0, a ghost slot) where ``keep`` is False."""
+    flat = ((cy + grid.row0) * grid.cap + rank) * grid.nx_pad + cx + 1
+    return torch.where(keep, flat, 0)
 
 
 def cell_index(v: torch.Tensor, origin: float, inv: np.float32,
@@ -116,13 +138,11 @@ def sort_field(binned: Binned, field: torch.Tensor) -> torch.Tensor:
 def to_dense(binned: Binned, field: torch.Tensor, fill) -> torch.Tensor:
     """Scatter a per-particle field [N] (ORIGINAL order) into dense cell
     slots [ny_pad, cap, nx_pad]; empty slots and the ghost border hold
-    ``fill``; overflowed particles (rank >= cap) are dropped."""
-    g = binned.grid
-    keep = binned.rank < g.cap
-    out = torch.full(g.plane_shape, fill, dtype=field.dtype,
+    ``fill``; overflowed particles (rank >= cap) are dropped: they write
+    ``fill`` into the ghost slot at flat index 0, which holds it already."""
+    out = torch.full(binned.grid.plane_shape, fill, dtype=field.dtype,
                      device=field.device)
-    out[binned.cy[keep] + g.row0, binned.rank[keep],
-        binned.cx[keep] + 1] = field[keep]
+    out.view(-1)[binned.slot] = torch.where(binned.keep, field, fill)
     return out
 
 
@@ -135,14 +155,14 @@ def from_dense(binned: Binned, dense: torch.Tensor,
 
 def from_dense_multi(binned: Binned, denses, fallbacks):
     """``from_dense`` of several dense fields at the binning's slots."""
-    return gather_slots(binned.grid, binned.cx, binned.cy, binned.rank,
-                        denses, fallbacks)
+    return [torch.where(binned.keep, d.reshape(-1)[binned.slot], fb)
+            for d, fb in zip(denses, fallbacks)]
 
 
 def gather_slots(grid: GridSpec2D, cx, cy, rank, denses, fallbacks):
     """Per-particle values of several dense fields at raw slot coordinates;
     particles without a slot (rank >= cap) get their field's fallback."""
-    in_cap = rank < grid.cap
-    r = torch.clamp_max(rank, grid.cap - 1)
-    return [torch.where(in_cap, d[cy + grid.row0, r, cx + 1], fb)
+    keep = rank < grid.cap
+    slot = slot_index(grid, cx, cy, rank, keep)
+    return [torch.where(keep, d.reshape(-1)[slot], fb)
             for d, fb in zip(denses, fallbacks)]

@@ -605,6 +605,45 @@ def test_eager_pallas_step_on_card_matches_cpu_twins(cuda):
     assert float(((a.rho.cpu() - b.rho) / b.rho).abs().max()) <= 1e-5
 
 
+def test_eager_step_on_card_syncs_once(cuda):
+    """One eager step on K1 + K8 of a scene with a crowded cell makes one
+    host sync, the overflow read: the scatters and gathers take the
+    binning's flat slot index, no boolean mask.  The binning's four planes
+    equal the CPU's bitwise, dropped particles' writes included."""
+    import warnings
+    grid = bt.GridSpec2D.from_bounds(h=0.045, x_min=-1.0, x_max=2.5,
+                                     y_min=0.0, y_max=3.0)
+    lattice = bt.init_grid(16, 16, 0.04, "cpu")
+    crowd = bt.init_grid(3, 4, 0.004, "cpu")
+    state = lattice.replace(**{
+        f: torch.cat([getattr(lattice, f), getattr(crowd, f) + 0.5])
+        for f in ("x", "y", "vx", "vy", "ax", "ay", "rho", "p")})
+    state = state.replace(vx=torch.linspace(-1.0, 1.0, state.n),
+                          vy=torch.linspace(0.5, -0.5, state.n))
+    on_card = state.to(cuda)
+    cuda_solver.step_with_diag(on_card, PARAMS, CFG, grid)     # builds
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, diag = cuda_solver.step_with_diag(on_card, PARAMS, CFG, grid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    planes, overflow = [], []
+    for s in (on_card, state):
+        b = bin_particles(s.x, s.y, grid)
+        overflow.append(b.overflow)
+        planes.append([to_dense(b, v, fill).cpu() for v, fill in (
+            (s.x, FAR), (s.y, FAR), (s.vx, 0.0), (s.vy, 0.0))])
+    assert diag.overflow == overflow[0] == overflow[1] > 0
+    for a, b in zip(*planes):
+        assert torch.equal(_bits(a), _bits(b))
+
+
 def test_unfused_session_on_card_matches_cpu_twins(cuda):
     """The unfused Session (K1 + K8 + torch integrate) on the card against
     the same Session on the CPU twins; K1 and K8 once per step, K2 never."""

@@ -39,8 +39,9 @@ import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as tvs
 from bevy_gpu_fluid_tpu_torch.ops import reslot as treslot
-from bevy_gpu_fluid_tpu_torch.ops.binning import (bin_particles, cell_ids,
-                                                  stable_rank)
+from bevy_gpu_fluid_tpu_torch.ops.binning import (FAR, bin_particles, cell_ids,
+                                                  from_dense_multi,
+                                                  stable_rank, to_dense)
 from bevy_gpu_fluid_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -206,6 +207,61 @@ def test_bin_particles_bitwise(case):
     assert got.overflow == int(want.overflow)
     if case in ("crowded", "corner", "runs"):
         assert got.overflow > 0
+
+
+def _masked_to_dense(b, field, fill):
+    """The boolean-mask scatter: kept particles at (cy + row0, rank,
+    cx + 1), the rest of the plane ``fill``."""
+    keep = b.rank < GRID_T.cap
+    out = torch.full(GRID_T.plane_shape, fill, dtype=field.dtype)
+    out[b.cy[keep] + GRID_T.row0, b.rank[keep], b.cx[keep] + 1] = field[keep]
+    return out
+
+
+def _masked_from_dense(b, dense, fallback):
+    """The boolean-mask gather: a kept particle's slot, else ``fallback``."""
+    keep = b.rank < GRID_T.cap
+    out = torch.full(b.rank.shape, fallback, dtype=dense.dtype)
+    out[keep] = dense[b.cy[keep] + GRID_T.row0, b.rank[keep], b.cx[keep] + 1]
+    return out
+
+
+def _bits(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["lattice", "crowded"])
+@pytest.mark.parametrize("kind,fill", [("x", FAR), ("vx", 0.0), ("idx", -1)])
+def test_slot_index_bitwise_masked_scatter_gather(case, kind, fill):
+    """``to_dense`` and ``from_dense_multi`` through the flat slot index
+    equal the boolean-mask scatter and gather bitwise, runs past ``cap``
+    included; a dropped particle's slot is 0, lane 0 of row 0, which holds
+    the plane's fill."""
+    x, y = _binning_scene(case)
+    b = bin_particles(_t(x), _t(y), GRID_T)
+    assert (b.overflow > 0) == (case == "crowded")
+    rng = np.random.default_rng(13)
+    n = x.size
+    if kind == "idx":
+        field = torch.arange(n, dtype=torch.int32)
+        dense = torch.from_numpy(rng.integers(-9, 9, GRID_T.plane_shape,
+                                              dtype=np.int32))
+    else:
+        field = _t(x) if kind == "x" else _t(
+            rng.normal(size=n).astype(np.float32))
+        dense = _t(rng.normal(size=GRID_T.plane_shape).astype(np.float32))
+    got = to_dense(b, field, fill)
+    assert got.dtype == field.dtype
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(_masked_to_dense(b, field, fill)))
+    assert got.view(-1)[0] == fill
+    dropped = b.rank >= GRID_T.cap
+    assert int(dropped.sum()) == b.overflow
+    assert (b.slot[dropped] == 0).all() and (b.slot[~dropped] > 0).all()
+    for plane in (got, dense):
+        (read,) = from_dense_multi(b, [plane], [fill])
+        np.testing.assert_array_equal(
+            _bits(read), _bits(_masked_from_dense(b, plane, fill)))
 
 
 def test_stable_rank_with_dead_entries():
