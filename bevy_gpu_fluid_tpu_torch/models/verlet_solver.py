@@ -150,7 +150,7 @@ class DenseSim:
         return int((self.sidx >= 0).sum())
 
 
-def _first_k(mask: torch.Tensor, k: int) -> torch.Tensor:
+def first_k(mask: torch.Tensor, k: int) -> torch.Tensor:
     """First ``k`` set positions of a flat bool tensor, ascending, padded
     with ``mask.numel()`` (the reference's fixed-size ``nonzero``)."""
     pos = torch.nonzero(mask.reshape(-1)).reshape(-1)[:k]
@@ -158,11 +158,15 @@ def _first_k(mask: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([pos, pad])
 
 
-def _ref_placeholder(device) -> torch.Tensor:
-    """Stand-in for the rebin-reference planes in the refless posture: a
-    (1, 1, 1) float32 tensor, so the two plane-footprints are freed (the
-    refless step never reads them)."""
-    return torch.zeros((1, 1, 1), dtype=torch.float32, device=device)
+def rebin_refs(xd: torch.Tensor, yd: torch.Tensor, refless: bool = False):
+    """The rebin references of fresh position planes: the planes
+    themselves, or for the refless trigger two (1, 1, 1) float32
+    placeholders, so the two plane-footprints are freed (the refless step
+    never reads them)."""
+    if not refless:
+        return xd, yd
+    return tuple(torch.zeros((1, 1, 1), dtype=torch.float32,
+                             device=xd.device) for _ in range(2))
 
 
 def init_dense(state: FluidState, grid: GridSpec2D,
@@ -178,7 +182,7 @@ def init_dense(state: FluidState, grid: GridSpec2D,
     idx = torch.arange(n, dtype=torch.int32, device=state.device)
     over = b.rank >= grid.cap if collect_spill \
         else torch.zeros_like(b.rank, dtype=torch.bool)
-    dpos = _first_k(over, spill_cap)
+    dpos = first_k(over, spill_cap)
     dv = dpos < n
     ds = torch.clamp_max(dpos, n - 1)
     return DenseSim(xd=xd, yd=yd, vxd=to_dense(b, state.vx, 0.0),
@@ -196,7 +200,7 @@ def init_dense(state: FluidState, grid: GridSpec2D,
                     overflow=b.overflow, step=state.step)
 
 
-def _chunk_init_carry(grid: GridSpec2D, spill_cap: int, device) -> dict:
+def chunk_init_carry(grid: GridSpec2D, spill_cap: int, device) -> dict:
     """The chunked init's state before the first chunk: empty planes, zero
     running cell counts, no overflow, an empty spill buffer."""
     shape = grid.plane_shape
@@ -215,8 +219,8 @@ def _chunk_init_carry(grid: GridSpec2D, spill_cap: int, device) -> dict:
                           device=device)))
 
 
-def _chunk_init_body(carry: dict, chunk, grid: GridSpec2D,
-                     collect_spill: bool) -> None:
+def chunk_init_body(carry: dict, chunk, grid: GridSpec2D,
+                    collect_spill: bool) -> None:
     """Bin one chunk (x, y, vx, vy, idx; idx int32, original order) into
     the carry IN PLACE.  A particle's slot is its stable rank within the
     chunk plus its cell's count from the earlier chunks: the global stable
@@ -241,7 +245,7 @@ def _chunk_init_body(carry: dict, chunk, grid: GridSpec2D,
     carry["overflow"] += int(over.sum())
     if collect_spill:
         m = x.shape[0]
-        dpos = _first_k(over, carry["spill"][0].shape[0])
+        dpos = first_k(over, carry["spill"][0].shape[0])
         dv = dpos < m
         ds = torch.clamp_max(dpos, m - 1)
         carry["spill"] = _spill_merge(carry["spill"], tuple(
@@ -273,13 +277,13 @@ def init_dense_chunked(state: FluidState, grid: GridSpec2D, n_chunks: int,
     stable ranks, the spill keeps the first drops in particle order."""
     n = state.n
     c = -(-n // n_chunks)
-    carry = _chunk_init_carry(grid, spill_cap, state.device)
+    carry = chunk_init_carry(grid, spill_cap, state.device)
     for lo in range(0, n, c):
         hi = min(lo + c, n)
         idx = torch.arange(lo, hi, dtype=torch.int32, device=state.device)
-        _chunk_init_body(carry, (state.x[lo:hi], state.y[lo:hi],
-                                 state.vx[lo:hi], state.vy[lo:hi], idx),
-                         grid, collect_spill)
+        chunk_init_body(carry, (state.x[lo:hi], state.y[lo:hi],
+                                state.vx[lo:hi], state.vy[lo:hi], idx),
+                        grid, collect_spill)
     return _chunk_init_finish(carry, grid, state.step)
 
 
@@ -294,12 +298,12 @@ def init_dense_gen(gen, n: int, grid: GridSpec2D, n_chunks: int,
     time.  Bitwise ``init_dense`` on the state ``gen`` describes."""
     device = torch.device(device)
     c = -(-n // n_chunks)
-    carry = _chunk_init_carry(grid, spill_cap, device)
+    carry = chunk_init_carry(grid, spill_cap, device)
     for lo in range(0, n, c):
         gi = torch.arange(lo, min(lo + c, n), device=device)
         x, y, vx, vy = gen(gi)
-        _chunk_init_body(carry, (x, y, vx, vy, gi.to(torch.int32)), grid,
-                         collect_spill)
+        chunk_init_body(carry, (x, y, vx, vy, gi.to(torch.int32)), grid,
+                        collect_spill)
         del x, y, vx, vy, gi
     return _chunk_init_finish(carry, grid, step)
 
@@ -332,6 +336,17 @@ def _skin(params: FluidParams, grid: GridSpec2D) -> np.float32:
     return (np.float32(grid.cell_size) - params.h) * np.float32(0.5)
 
 
+def trigger_bounds(params: FluidParams, cfg: IntegrateConfig,
+                   grid: GridSpec2D, refless: bool = False):
+    """(threshold, vmax2) of the rebin trigger: the bound on ``disp2``
+    (half the skin, squared unless ``refless``) and recovery's largest
+    squared speed, the skin invariant |v| dt <= skin_half."""
+    skin_half = _skin(params, grid)
+    q = skin_half / cfg.dt
+    return (float(skin_half) if refless else float(skin_half * skin_half),
+            q * q)
+
+
 _FILLS = reslot_ops.PLANE_FILLS   # empty x, y, vx, vy, idx slots
 
 
@@ -347,7 +362,7 @@ def live_slots(xd: torch.Tensor) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.stack(parts).sum()
 
 
-def _found_in_window(pidx_d: torch.Tensor, idx_d: torch.Tensor):
+def found_in_window(pidx_d: torch.Tensor, idx_d: torch.Tensor):
     """Per pre-rebin slot: is its particle index present in the 3x3 cell
     window of its slot in the post-rebin idx plane?  (The fused rebin's
     drop test: a live pre-rebin slot not found was dropped.)  It compares
@@ -365,17 +380,40 @@ def _found_in_window(pidx_d: torch.Tensor, idx_d: torch.Tensor):
     return found
 
 
-def _spill_collect(dropped: torch.Tensor, planes, spill):
+def spill_collect(dropped: torch.Tensor, planes, spill):
     """Overflow recovery's COLLECT: the first spill-capacity slots flagged
     in ``dropped`` (flat C order), read from the pre-rebin planes (x, y,
     vx, vy, idx), merged into the spill buffer (x, y, vx, vy, idx)."""
     total = dropped.numel()
-    dpos = _first_k(dropped, spill[0].shape[0])
+    dpos = first_k(dropped, spill[0].shape[0])
     dv = dpos < total
     dsf = torch.clamp_max(dpos, total - 1)
     return _spill_merge(spill, tuple(
         torch.where(dv, p.reshape(-1)[dsf], fill)
         for p, fill in zip(planes, _FILLS)))
+
+
+def collect_dropped(pre, idx_d: torch.Tensor, spill, found=None):
+    """The fused rebin's COLLECT: live slots of ``pre`` (x, y, vx, vy, idx)
+    found neither in the 3x3 window of their slot in the new ``idx_d`` nor
+    in ``found`` (a slab's export columns), merged into ``spill``."""
+    hit = found_in_window(pre[4], idx_d)
+    if found is not None:
+        hit |= found
+    return spill_collect((pre[4] >= 0) & ~hit, pre, spill)
+
+
+def rebin_counts(live: torch.Tensor, cnt: torch.Tensor, sidx: torch.Tensor,
+                 cap: int, armed: bool):
+    """A rebin's one host sync: ((live slots before, matches, matches
+    within ``cap``), whether recovery runs: ``armed`` and a slot lost or a
+    spill entry held)."""
+    with span("bgf.read.rebin_counts"):
+        alive_before, matched, captured, spilled = torch.stack([
+            live, cnt.sum(), torch.clamp_max(cnt, cap).sum(),
+            (sidx >= 0).any().long()]).tolist()
+    return ((alive_before, matched, captured),
+            armed and (alive_before - captured > 0 or spilled))
 
 
 def _spill_merge(spill, drops):
@@ -422,6 +460,81 @@ def _spill_admit(xd, yd, vxd, vyd, idx_d, cnt,
     svy = torch.where(admit, 0.0, svy)
     sidx = torch.where(admit, -1, sidx)
     return xd, yd, vxd, vyd, idx_d, sx, sy, svx, svy, sidx, readmitted
+
+
+def kernel_sequence(params: FluidParams, cfg: IntegrateConfig,
+                    grid: GridSpec2D, stencils=None, *, refless: bool = False,
+                    donate: bool = False, kernels=None, lanes=None):
+    """A step's kernels on one set of planes, split where a slab step puts
+    its density halo (options as ``make_step_parts``'s).
+    ``density(xd, yd, occ, rho_d)``: K1 or the stencils' density, with
+    ``donate`` into ``rho_d`` (last step's, dead) where the kernel takes
+    ``out``.  ``advance(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd, occ,
+    disp2)`` -> (xd, yd, vxd, vyd, disp2): K2, or the stencils' forces and
+    ``cuda_solver.integrate_into``; the trigger's maximum over the lanes
+    [lo, hi) of ``lanes`` (a slab's real columns; all by default); refless:
+    ``disp2`` plus the root of this step's largest squared move."""
+    ks = cuda_solver if kernels is None else kernels
+    fused = stencils is None
+    if not fused:
+        density_fn, forces_fn = stencils
+    rho_into = donate and (fused or getattr(density_fn, "takes_out", False))
+
+    def density(xd, yd, occ, rho_d):
+        out = rho_d if rho_into else None
+        if fused:
+            return ks.density_cuda(xd, yd, params, grid, occ, out=out)
+        kw = {} if out is None else {"out": out}
+        return density_fn(xd, yd, params, occ=occ, **kw)
+
+    def advance(xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd, occ, disp2):
+        if fused:
+            *new, moved = ks.forces_integrate_cuda(
+                xd, yd, vxd, vyd, rho_d, ref_xd, ref_yd, params, cfg, grid,
+                occ, refless=refless, disp_lanes=lanes)
+        else:
+            ax, ay = forces_fn(xd, yd, vxd, vyd, rho_d, params, occ=occ)
+            *new, moved = cuda_solver.integrate_into(
+                xd, yd, vxd, vyd, ax, ay, ref_xd, ref_yd, cfg,
+                refless=refless, lanes=lanes)
+        return (*new, (disp2 + torch.sqrt(moved)) if refless else moved)
+
+    return density, advance
+
+
+def rebin_consuming(old: list, grid: GridSpec2D, read_counts, spill, *,
+                    occ=None, code_dtype=torch.int32, clip=(0, None),
+                    origin=None, hand_back=None, lost: str):
+    """The planar rebin that TAKES ``old`` (x, y, vx, vy, idx; the caller
+    keeps no other reference): K6 (``occ`` the planes' slot bounds, from
+    ``old[0]`` when None; ``clip``, ``origin`` as ``reslot.select_cuda``'s),
+    ``read_counts(cnt)`` -> (stats, recover), recovery's drops read off the
+    code into ``spill`` while the old planes live, then
+    ``reslot.apply_planes`` frees each old plane after its copy.  Returns
+    (planes, cnt, stats, spill, recover).  A failure before any plane was
+    consumed calls ``hand_back(old)`` and propagates (the rebin is still
+    due); after that, or with no ``hand_back``, RuntimeError names ``lost``."""
+    try:
+        with span("bgf.rebin.select"):
+            if occ is None:
+                occ = reslot_ops.block_kmax3(old[0], grid)
+            code, cnt = reslot_ops.select_cuda(old[0], old[1], grid, occ,
+                                               code_dtype, *clip, origin)
+            stats, recover = read_counts(cnt)
+            if recover:   # collect before the applies free the planes
+                dropped = ((old[4] >= 0)
+                           & ~reslot_ops.taken_mask(code, grid.cap))
+                spill = spill_collect(dropped, old, spill)
+                del dropped
+        with span("bgf.rebin.apply"):
+            planes = reslot_ops.apply_planes(old, code, occ, grid)
+    except BaseException as exc:
+        if hand_back is None or any(p is None for p in old):
+            raise RuntimeError("planar rebin failed after consuming input "
+                               f"planes; {lost}") from exc
+        hand_back(old)
+        raise
+    return planes, cnt, stats, spill, recover
 
 
 def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
@@ -479,33 +592,13 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
     ks = cuda_solver if kernels is None else kernels
     reslot = (reslot_ops.make_reslot(grid) if kernels is None
               else lambda *planes: kernels.reslot_cuda(*planes, grid))
-    skin_half = _skin(params, grid)
-    skin2 = float(skin_half * skin_half)
-    q = skin_half / cfg.dt
-    vmax2 = q * q
-    fused = stencils is None
-    mono = (fused and grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
+    threshold, vmax2 = trigger_bounds(params, cfg, grid, refless)
+    mono = (stencils is None
+            and grid.n_row_blocks < cuda_solver.MONO_MAX_BLOCKS
             and not refless)
-    if not fused:
-        density_fn, forces_fn = stencils
-    rho_into = donate and (fused or getattr(density_fn, "takes_out", False))
-
-    def fresh_refs(xd, yd):
-        """The rebin references of new position planes."""
-        if refless:
-            return _ref_placeholder(xd.device), _ref_placeholder(xd.device)
-        return xd, yd
-
-    def host_counts(xd, cnt, sidx):
-        """(alive_before, matched, captured) and whether recovery runs (a
-        particle lost its slot, or the spill buffer holds one): one sync."""
-        with span("bgf.read.rebin_counts"):
-            alive_before, matched, captured, spilled = torch.stack([
-                live_slots(xd), cnt.sum(),
-                torch.clamp_max(cnt, grid.cap).sum(),
-                (sidx >= 0).any().long()]).tolist()
-        return ((alive_before, matched, captured),
-                n is not None and (alive_before - captured > 0 or spilled))
+    density, advance = kernel_sequence(params, cfg, grid, stencils,
+                                       refless=refless, donate=donate,
+                                       kernels=kernels)
 
     def rebinned(sim: DenseSim, planes, cnt, stats, spill,
                  recover: bool) -> DenseSim:
@@ -519,7 +612,7 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
             planes, spill, readmitted = out[:5], out[5:10], out[10]
         xd, yd, vxd, vyd, idx_d = planes
         sx, sy, svx, svy, sidx = spill
-        ref_xd, ref_yd = fresh_refs(xd, yd)
+        ref_xd, ref_yd = rebin_refs(xd, yd, refless)
         return DenseSim(xd=xd, yd=yd, vxd=vxd, vyd=vyd, rho_d=sim.rho_d,
                         ref_xd=ref_xd, ref_yd=ref_yd, idx_d=idx_d,
                         occ=reslot_ops.block_kmax3(xd, grid),
@@ -530,19 +623,25 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
                         rebin_count=sim.rebin_count + 1, step=sim.step,
                         readmitted=readmitted)
 
+    def read_counts(xd, cnt, sidx):
+        return rebin_counts(live_slots(xd), cnt, sidx, grid.cap,
+                            n is not None)
+
     def rebin(sim: DenseSim) -> DenseSim:
         with span("bgf.rebin"):
             old = (sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d)
             *planes, cnt = reslot(*old)
-            stats, recover = host_counts(sim.xd, cnt, sim.sidx)
+            stats, recover = read_counts(sim.xd, cnt, sim.sidx)
             spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
             if recover:
-                dropped = (sim.idx_d >= 0) & ~_found_in_window(sim.idx_d,
-                                                              planes[4])
-                spill = _spill_collect(dropped, old, spill)
+                spill = collect_dropped(old, planes[4], spill)
             return rebinned(sim, planes, cnt, stats, spill, recover)
 
     def rebin_planar(sim: DenseSim) -> DenseSim:
+        def hand_back(old):
+            sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d = old
+            sim.ref_xd, sim.ref_yd = rebin_refs(old[0], old[1], refless)
+
         with span("bgf.rebin"):
             old = [sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d]
             # the rebin owns the planes: with no reference left in ``sim``,
@@ -550,32 +649,11 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
             # exists
             sim.xd = sim.yd = sim.vxd = sim.vyd = sim.idx_d = None
             sim.ref_xd = sim.ref_yd = None
-            try:
-                with span("bgf.rebin.select"):
-                    code, cnt = reslot_ops.select_cuda(old[0], old[1], grid,
-                                                       sim.occ, code_dtype)
-                    stats, recover = host_counts(old[0], cnt, sim.sidx)
-                    spill = (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx)
-                    if recover:   # collect before the applies free the planes
-                        dropped = ((old[4] >= 0)
-                                   & ~reslot_ops.taken_mask(code, grid.cap))
-                        spill = _spill_collect(dropped, old, spill)
-                        del dropped
-                with span("bgf.rebin.apply"):
-                    planes = reslot_ops.apply_planes(old, code, sim.occ,
-                                                     grid)
-            except BaseException as exc:
-                if any(p is None for p in old):
-                    raise RuntimeError(
-                        "planar rebin failed after consuming input planes; "
-                        "the DenseSim is lost (Session.reset restarts it)"
-                    ) from exc
-                # nothing consumed: hand the planes back.  The rebin is still
-                # due, so the next step rebins before it reads the references.
-                sim.xd, sim.yd, sim.vxd, sim.vyd, sim.idx_d = old
-                sim.ref_xd, sim.ref_yd = fresh_refs(old[0], old[1])
-                raise
-            del code
+            planes, cnt, stats, spill, recover = rebin_consuming(
+                old, grid, lambda cnt: read_counts(old[0], cnt, sim.sidx),
+                (sim.sx, sim.sy, sim.svx, sim.svy, sim.sidx), occ=sim.occ,
+                code_dtype=code_dtype, hand_back=hand_back,
+                lost="the DenseSim is lost (Session.reset restarts it)")
             return rebinned(sim, planes, cnt, stats, spill, recover)
 
     def need(sim: DenseSim) -> bool:
@@ -586,35 +664,18 @@ def make_step_parts(params: FluidParams, cfg: IntegrateConfig,
         if sim.age >= max_age:
             return True
         with span("bgf.read.trigger"):
-            return float(sim.disp2) > (float(skin_half) if refless
-                                       else skin2)
+            return float(sim.disp2) > threshold
 
     def pure_step(sim: DenseSim) -> DenseSim:
         if mono:
             xd, yd, vxd, vyd, rho_d, disp2 = ks.mono_step_cuda(
                 sim.xd, sim.yd, sim.vxd, sim.vyd, sim.ref_xd, sim.ref_yd,
                 params, cfg, grid, sim.occ)
-            return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
-                                       rho_d=rho_d, disp2=disp2,
-                                       age=sim.age + 1, step=sim.step + 1)
-        out = sim.rho_d if rho_into else None
-        if fused:
-            rho_d = ks.density_cuda(sim.xd, sim.yd, params, grid, sim.occ,
-                                    out=out)
-            xd, yd, vxd, vyd, disp2 = ks.forces_integrate_cuda(
-                sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd,
-                sim.ref_yd, params, cfg, grid, sim.occ, refless=refless)
         else:
-            kw = {} if out is None else {"out": out}
-            rho_d = density_fn(sim.xd, sim.yd, params, occ=sim.occ, **kw)
-            ax, ay = forces_fn(sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d,
-                               params, occ=sim.occ)
-            xd, yd, vxd, vyd, disp2 = cuda_solver.integrate_into(
-                sim.xd, sim.yd, sim.vxd, sim.vyd, ax, ay, sim.ref_xd,
-                sim.ref_yd, cfg, refless=refless)
-            del ax, ay
-        if refless:
-            disp2 = sim.disp2 + torch.sqrt(disp2)
+            rho_d = density(sim.xd, sim.yd, sim.occ, sim.rho_d)
+            xd, yd, vxd, vyd, disp2 = advance(
+                sim.xd, sim.yd, sim.vxd, sim.vyd, rho_d, sim.ref_xd,
+                sim.ref_yd, sim.occ, sim.disp2)
         return dataclasses.replace(sim, xd=xd, yd=yd, vxd=vxd, vyd=vyd,
                                    rho_d=rho_d, disp2=disp2,
                                    age=sim.age + 1, step=sim.step + 1)
@@ -736,16 +797,26 @@ def step_until(sim: DenseSim, k: int, pure_step, need):
     return sim, done, pending
 
 
-def run_segmented(owner, n_steps: int, chunk: int | None, pure_step, need,
-                  rebin) -> None:
-    """The segmented driver of ``Session`` and ``ShardedSession``
-    (``owner``, whose ``sim`` it advances n_steps): ``step_until``
-    segments of at most ``chunk`` steps, and a rebin wherever a segment
-    stopped on the trigger with steps left.  Bitwise the standard run: a
-    rebin runs exactly where a step's check would have run it (a segment
-    that ends on its bound with the trigger clear continues in the next).
-    ``owner.sim`` is set after every segment and rebin, so a rebin that
-    fails leaves the owner at the state it failed on."""
+def run_steps(owner, n_steps: int, chunk: int | None, pure_step, need,
+              rebin, segmented: bool = False) -> None:
+    """The step loop of ``Session`` and ``ShardedSession``: advances
+    ``owner.sim`` n_steps, per step (a ``bgf.step`` span) a rebin if
+    ``need`` fired, then ``pure_step``.  ``chunk=K`` (the reference's API:
+    calls of at most K steps) gives the same trajectory bit for bit, so
+    only the SEGMENTED driver reads it: ``step_until`` segments of at most
+    K steps, a rebin where one stopped on the trigger with steps left,
+    bitwise the standard loop.  ``owner.sim`` is set after every rebin and
+    step, so a rebin that fails leaves the owner at the state it failed
+    on."""
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk={chunk}: want at least 1")
+    if not segmented:
+        for _ in range(n_steps):
+            with span("bgf.step"):
+                if need(owner.sim):
+                    owner.sim = rebin(owner.sim)
+                owner.sim = pure_step(owner.sim)
+        return
     cap = n_steps if chunk is None else chunk
     done = 0
     while done < n_steps:
@@ -882,11 +953,11 @@ class Session:
             refless=refless_trigger, donate=donate)
 
     def _apply_refless(self) -> None:
-        """Refless posture: swap the fresh reference planes for (1, 1, 1)
-        placeholders, so the two plane-footprints are freed at once."""
-        if self.refless_trigger:
-            self.sim.ref_xd = _ref_placeholder(self.device)
-            self.sim.ref_yd = _ref_placeholder(self.device)
+        """The fresh state's references (``rebin_refs``): the refless
+        posture swaps them for placeholders, so the two plane-footprints
+        are freed at once."""
+        self.sim.ref_xd, self.sim.ref_yd = rebin_refs(
+            self.sim.xd, self.sim.yd, self.refless_trigger)
 
     def reset(self, state: FluidState) -> None:
         """Re-seed the resident DenseSim from a per-particle FluidState
@@ -907,30 +978,11 @@ class Session:
         self._apply_refless()
 
     def run(self, n_steps: int, chunk: int | None = None) -> None:
-        """Advance n_steps: per step, rebin if the trigger fired, then the
-        step's kernels.  Returns as soon as the last step is enqueued
-        (apart from the per-step trigger read).  ``chunk=K`` runs the steps
-        as sequential calls of at most K steps, the reference's API: the
-        same trajectory bit for bit (for the segmented driver, its segment
-        bound)."""
-        if chunk is not None and chunk < 1:
-            raise ValueError(f"chunk={chunk}: want at least 1")
-        if self.segmented:
-            run_segmented(self, n_steps, chunk, self._pure_step, self._need,
-                          self._rebin)
-            return
-        done = 0
-        while done < n_steps:
-            k = n_steps - done if chunk is None else min(chunk, n_steps - done)
-            self._run(k)
-            done += k
-
-    def _run(self, n_steps: int) -> None:
-        for _ in range(n_steps):
-            with span("bgf.step"):
-                if self._need(self.sim):
-                    self.sim = self._rebin(self.sim)
-                self.sim = self._pure_step(self.sim)
+        """Advance n_steps (``run_steps``): per step, rebin if the trigger
+        fired, then the step's kernels.  Returns as soon as the last step
+        is enqueued (apart from the per-step trigger read)."""
+        run_steps(self, n_steps, chunk, self._pure_step, self._need,
+                  self._rebin, self.segmented)
 
     def frame(self, px_per_cell: int = 2,
               mode: str = "density") -> torch.Tensor:

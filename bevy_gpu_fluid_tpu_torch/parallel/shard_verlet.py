@@ -38,12 +38,17 @@ stale value under the ref-based trigger, ROADMAP S1; the pure step that
 follows overwrites it, so the trajectory is the same).  The counters are
 host ints per slab; a rebin reads them back in two syncs for all slabs.
 
-The postures of very large N per slab are the single card's, slab by
-slab (``make_sharded_verlet_step``): the unfused step (``fused=False``
-with a ``stencils`` pair), the chunked and generator inits, the refless
-trigger, owned planes (``donate``: the halo in place, K1 into the dead
-rho, the planar rebin consuming its inputs); the segmented driver runs
-``verlet_solver.run_segmented`` over the slab step's pieces.
+What a slab shares with the single card is the single card's code
+(``models/verlet_solver.py``: the trigger, the references, the kernel
+sequence, the owned planar rebin, the collect, the live counts, the run
+loop); what is the slabs' own stays here: the halos, the capture exchange
+and merge, the neighbours' slot bounds, the batched count sync, the inits
+from alive-masked buffers and the slab's re-admission (``_sh_admit``).
+The very-large-N postures are the single card's, slab by slab
+(``make_sharded_verlet_step``): the unfused step (``fused=False`` with a
+``stencils`` pair), the chunked and generator inits, the refless trigger,
+owned planes (``donate``: the halo in place, K1 into the dead rho, the
+planar rebin consuming its inputs).
 ``slab_default`` chooses the postures from the memory each slab gets of
 its card.
 """
@@ -58,11 +63,11 @@ import torch.nn.functional as F
 
 from ..core.params import FluidParams, IntegrateConfig
 from ..core.state import FluidState
-from ..models import cuda_solver
-from ..models.verlet_solver import (_chunk_init_body, _chunk_init_carry,
-                                    _first_k, _found_in_window,
-                                    _ref_placeholder, _skin, _spill_collect,
-                                    planar_rebin_default)
+from ..models.verlet_solver import (chunk_init_body, chunk_init_carry,
+                                    collect_dropped, first_k, kernel_sequence,
+                                    live_slots, planar_rebin_default,
+                                    rebin_consuming, rebin_counts, rebin_refs,
+                                    spill_collect, trigger_bounds)
 from ..ops import reslot as reslot_ops
 from ..ops.binning import FAR, inv_cell, to_dense
 from ..ops.kernels import eos_pressure, self_density
@@ -177,14 +182,6 @@ def _clear_ghost_cols(a: torch.Tensor, nxl: int, fill,
     return a
 
 
-def _count_live(xd: torch.Tensor) -> torch.Tensor:
-    return (xd < FAR * 0.5).sum()
-
-
-def _real_cols(a: torch.Tensor, nxl: int) -> torch.Tensor:
-    return a[:, :, 1:nxl + 1]
-
-
 def _dead_column_fill(device) -> torch.Tensor:
     """[5, 1, 1] fills of the (x, y, vx, vy, idx-as-float32-bits) edge
     columns a slab with no neighbour receives: FAR, FAR, 0, 0, -1."""
@@ -268,16 +265,6 @@ def _sh_admit(planes, spill, readmitted: int, grid, ox, vmax2):
     return spill, readmitted
 
 
-def _sh_recover(planes, merges, spill, readmitted: int, grid, ox, vmax2):
-    """The rest of recovery on one slab at a rebin, after the reslot's
-    losses are collected: COLLECT the edge merges' drops (``merges``, a
-    list of (drop mask, source planes)) into the spill buffer, then
-    RE-ADMIT (``_sh_admit``)."""
-    for dmask, src in merges:
-        spill = _spill_collect(dmask, src, spill)
-    return _sh_admit(planes, spill, readmitted, grid, ox, vmax2)
-
-
 class ShardedSteps:
     """The sharded solver's pieces: ``init`` (a ShardedState, or the
     initial step on the generator path), ``pure_step(sim)`` (the kernels
@@ -325,7 +312,7 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
     the single card's in ``models/verlet_solver.py``):
 
     * ``init_chunks=K``: each slab's dense planes built from K chunks of
-      its buffer (``verlet_solver._chunk_init_body`` on the slab's grid):
+      its buffer (``verlet_solver.chunk_init_body`` on the slab's grid):
       O(capacity / K) sort transients, bitwise the sort-based init;
     * ``gen``/``gen_n``: the GENERATOR init, ``init(step)``: each slab
       scans the global index range [0, gen_n) in ``init_chunks`` (or 16)
@@ -347,12 +334,13 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
       its losses read off the code (``reslot.taken_mask``).  A sim kept
       from before the step is invalidated.  If that rebin fails before it
       consumed an input plane, the sim gets slab 0's planes back (the
-      rebin is still due); after that the error says the sim is lost.  Bitwise the copying posture,
-      but for the reference planes' ghost columns (ref-based: they alias
-      the positions, which the halo now writes; nothing reads them).
+      rebin is still due); after that the error says the sim is lost.
+      Bitwise the copying posture, but for the reference planes' ghost
+      columns (ref-based: they alias the positions, which the halo now
+      writes; nothing reads them).
 
-    The segmented driver (``verlet_solver.run_segmented`` over
-    ``pure_step``, ``need`` and ``rebin``) is two host loops, the standard
+    The segmented driver (``verlet_solver.run_steps`` over ``pure_step``,
+    ``need`` and ``rebin``) is two host loops, the standard
     trajectory bit for bit: the reference's donor-chain rebin works
     around XLA's donation pairing and has no counterpart here.
 
@@ -360,7 +348,6 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
     ``verlet_solver.make_step_parts``'s: ``kernels.ops`` for
     ``torch.export``)."""
     from ..models import grid_solver
-    ks = cuda_solver if kernels is None else kernels
     g = spec.local_grid
     D = spec.n_devices
     nxl = spec.nx_local
@@ -369,10 +356,12 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         raise ValueError(f"spec has {D} slabs, mesh {mesh.n}")
     if planar is None:
         planar = slab_default(planar_rebin_default, g, mesh, donate)
-    if not fused:
-        density_fn, forces_fn = (grid_solver.XLA_STENCILS
-                                 if stencils is None else stencils)
-    rho_into = donate and (fused or getattr(density_fn, "takes_out", False))
+    if not fused and stencils is None:
+        stencils = grid_solver.XLA_STENCILS
+    # the trigger's maximum over the slab's real columns
+    density, advance = kernel_sequence(
+        params, cfg, g, None if fused else stencils, refless=refless,
+        donate=donate, kernels=kernels, lanes=(1, nxl + 1))
     lean = donate and planar     # the planar rebin consumes owned planes
     # D > 1: the clip widened to [-1, nx_local] captures slab exits in the
     # ghost columns.  D = 1: the plain clip (the bounce box keeps every
@@ -380,11 +369,7 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
     clip = (-1, nxl) if D > 1 else (0, nxl - 1)
     origins = [sh.slab_origin(spec, d) for d in range(D)]
     grids = [sh.slab_grid(spec, d) for d in range(D)]
-    skin_half = _skin(params, g)
-    thr = float(skin_half) if refless else float(skin_half * skin_half)
-    q = skin_half / cfg.dt
-    vmax2 = q * q
-    disp_lanes = (1, nxl + 1)
+    threshold, vmax2 = trigger_bounds(params, cfg, g, refless)
     dead_col = [_dead_column_fill(dev) for dev in mesh.devices]
     halo_fills = (FAR, FAR, 0.0, 0.0)
 
@@ -394,13 +379,6 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                                             torch.int32, *clip, origins[d])
         return reslot_ops.reslot_cuda(xd, yd, vxd, vyd, idx_d, g, *clip,
                                       origins[d])
-
-    def refs(xds, yds):
-        """The rebin references of new position planes, per slab."""
-        if refless:
-            return ([_ref_placeholder(x.device) for x in xds],
-                    [_ref_placeholder(x.device) for x in xds])
-        return list(xds), list(yds)
 
     def occ_of(xds):
         """Each slab's ``block_kmax3`` maxed with both neighbours' (a ghost
@@ -448,12 +426,10 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
             del x, y, vx, vy, mine, gi
 
     def init_chunked(chunks, d: int) -> dict:
-        carry = _chunk_init_carry(g, spill_cap, mesh.devices[d])
+        carry = chunk_init_carry(g, spill_cap, mesh.devices[d])
         for chunk in chunks:
-            _chunk_init_body(carry, chunk, grids[d], n is not None)
-        return dict(xd=carry["xd"], yd=carry["yd"], vxd=carry["vxd"],
-                    vyd=carry["vyd"], idx_d=carry["idx_d"],
-                    spill=carry["spill"], overflow=carry["overflow"])
+            chunk_init_body(carry, chunk, grids[d], n is not None)
+        return carry
 
     def init_sorted(s: sh.ShardedState, d: int) -> dict:
         alive = s.alive[d]
@@ -465,7 +441,7 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         m = x.shape[0]
         dropped = alive & (b.rank >= cap) if n is not None \
             else torch.zeros_like(alive)
-        dpos = _first_k(dropped, spill_cap)
+        dpos = first_k(dropped, spill_cap)
         dv = dpos < m
         ds = torch.clamp_max(dpos, m - 1)
         return dict(
@@ -491,16 +467,16 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         out = {k: [p[k] for p in slabs]
                for k in ("xd", "yd", "vxd", "vyd", "idx_d")}
         xds = out["xd"]
-        ref_x, ref_y = refs(xds, out["yd"])
+        ref_x, ref_y = zip(*map(rebin_refs, xds, out["yd"], [refless] * D))
         spill = list(zip(*[p["spill"] for p in slabs]))
         return ShardedDenseSim(
             **out, sx=list(spill[0]), sy=list(spill[1]), svx=list(spill[2]),
             svy=list(spill[3]), sidx=list(spill[4]),
-            rho_d=[torch.zeros_like(x) for x in xds], ref_xd=ref_x,
-            ref_yd=ref_y, occ=occ_of(xds),
+            rho_d=[torch.zeros_like(x) for x in xds], ref_xd=list(ref_x),
+            ref_yd=list(ref_y), occ=occ_of(xds),
             disp2=[torch.zeros((), dtype=torch.float32, device=dev)
                    for dev in mesh.devices],
-            alive=[v[0] for v in host([[_count_live(x)] for x in xds])],
+            alive=[v[0] for v in host([[live_slots(x)] for x in xds])],
             overflow=[p["overflow"] for p in slabs], lost=[0] * D,
             dropped=[0] * D, readmitted=[0] * D,
             step=int(s) if gen is not None else s.step)
@@ -512,7 +488,7 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         sync for all slabs."""
         if sim.age >= max_age:
             return True
-        return mesh.any([d2 > thr for d2 in sim.disp2])
+        return mesh.any([d2 > threshold for d2 in sim.disp2])
 
     def pure_step(sim: ShardedDenseSim) -> ShardedDenseSim:
         if not donate:      # the given sim stays a snapshot
@@ -523,81 +499,37 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         planes = sh.fill_ghost_cols_multi(
             mesh, list(zip(sim.xd, sim.yd, sim.vxd, sim.vyd)), nxl,
             halo_fills, inplace=donate)
-        rho = []
-        for d, (p, occ) in enumerate(zip(planes, sim.occ)):
-            out = sim.rho_d[d] if rho_into else None
-            if fused:
-                rho.append(ks.density_cuda(p[0], p[1], params, g, occ,
-                                           out=out))
-            else:
-                kw = {} if out is None else {"out": out}
-                rho.append(density_fn(p[0], p[1], params, occ=occ, **kw))
+        rho = [density(p[0], p[1], occ, dead)
+               for p, occ, dead in zip(planes, sim.occ, sim.rho_d)]
         if D > 1:
             rho = [r[0] for r in sh.fill_ghost_cols_multi(
                 mesh, [(r,) for r in rho], nxl, (0.0,), inplace=True)]
         for d in range(D):
             x, y, vx, vy = planes[d]
             planes[d] = None
-            occ = sim.occ[d]
-            if fused:
-                new = ks.forces_integrate_cuda(
-                    x, y, vx, vy, rho[d], sim.ref_xd[d], sim.ref_yd[d],
-                    params, cfg, g, occ, refless=refless,
-                    disp_lanes=disp_lanes)
-            else:
-                ax, ay = forces_fn(x, y, vx, vy, rho[d], params, occ=occ)
-                new = cuda_solver.integrate_into(
-                    x, y, vx, vy, ax, ay, sim.ref_xd[d], sim.ref_yd[d], cfg,
-                    refless=refless, lanes=disp_lanes)
-                del ax, ay
+            new = advance(x, y, vx, vy, rho[d], sim.ref_xd[d], sim.ref_yd[d],
+                          sim.occ[d], sim.disp2[d])
             del x, y, vx, vy      # owned: slab d's old planes die here
-            sim.xd[d], sim.yd[d], sim.vxd[d], sim.vyd[d] = new[:4]
+            sim.xd[d], sim.yd[d], sim.vxd[d], sim.vyd[d], sim.disp2[d] = new
             sim.rho_d[d] = rho[d]
-            sim.disp2[d] = (sim.disp2[d] + torch.sqrt(new[4]) if refless
-                            else new[4])
             del new
         sim.age += 1
         sim.step += 1
         return sim
-
-    def consume_planar(sim: ShardedDenseSim, d: int, before, spill):
-        """The owned planar rebin of slab d (ghost columns already
-        cleared; ``before`` its live count): K6, the losses read off the
-        code and collected while the old planes live, then 5 x K7, each old
-        plane freed after its copy.  Returns (planes, cnt, spill)."""
-        old = [sim.xd[d], sim.yd[d], sim.vxd[d], sim.vyd[d], sim.idx_d[d]]
-        sim.xd[d] = sim.yd[d] = sim.vxd[d] = sim.vyd[d] = None
-        sim.idx_d[d] = sim.ref_xd[d] = sim.ref_yd[d] = None
-        try:
-            occ = reslot_ops.block_kmax3(old[0], g)
-            code, cnt = reslot_ops.select_cuda(old[0], old[1], g, occ,
-                                               torch.int32, *clip, origins[d])
-            if n is not None:
-                alive, captured, spilled = host([[
-                    before, torch.clamp_max(cnt, cap).sum(),
-                    (sim.sidx[d] >= 0).any()]])[0]
-                if alive - captured > 0 or spilled:
-                    gone = (old[4] >= 0) & ~reslot_ops.taken_mask(code, cap)
-                    spill = _spill_collect(gone, old, spill)
-                    del gone
-            return reslot_ops.apply_planes(old, code, occ, g), cnt, spill
-        except BaseException as exc:
-            if d > 0 or any(p is None for p in old):
-                raise RuntimeError(
-                    f"owned planar rebin failed on slab {d} after consuming "
-                    "input planes; the ShardedDenseSim is lost (restore a "
-                    "checkpoint)") from exc
-            # nothing consumed: hand the planes back.  The rebin is still
-            # due, so the next step rebins before it reads the references.
-            sim.xd[d], sim.yd[d], sim.vxd[d], sim.vyd[d], sim.idx_d[d] = old
-            (sim.ref_xd[d],), (sim.ref_yd[d],) = refs(old[:1], old[1:2])
-            raise
 
     def rebin(sim: ShardedDenseSim) -> ShardedDenseSim:
         slabs, stats, exports, merges = [], [], [], []
         if not donate:      # the given sim stays a snapshot
             sim = dataclasses.replace(sim, xd=list(sim.xd),
                                       idx_d=list(sim.idx_d))
+
+        def hand_back(old):
+            """Slab 0's planes back, from an owned planar rebin that failed
+            before consuming them."""
+            sim.xd[0], sim.yd[0], sim.vxd[0], sim.vyd[0], sim.idx_d[0] = old
+            sim.ref_xd[0], sim.ref_yd[0] = rebin_refs(old[0], old[1],
+                                                      refless)
+
         for d in range(D):
             if D > 1:
                 # the ghost columns hold the neighbours' particles: clear x
@@ -605,11 +537,24 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                 sim.xd[d] = _clear_ghost_cols(sim.xd[d], nxl, FAR, donate)
                 sim.idx_d[d] = _clear_ghost_cols(sim.idx_d[d], nxl, -1,
                                                  donate)
-            before = _count_live(sim.xd[d])
+            before = live_slots(sim.xd[d])
             spill = (sim.sx[d], sim.sy[d], sim.svx[d], sim.svy[d],
                      sim.sidx[d])
             if lean:
-                planes, cnt, spill = consume_planar(sim, d, before, spill)
+                # the losses are read off the code and collected while the
+                # old planes live (one sync for this slab), then 5 x K7 free
+                # each old plane after its copy; only slab 0's can go back
+                old = [sim.xd[d], sim.yd[d], sim.vxd[d], sim.vyd[d],
+                       sim.idx_d[d]]
+                sim.xd[d] = sim.yd[d] = sim.vxd[d] = sim.vyd[d] = None
+                sim.idx_d[d] = sim.ref_xd[d] = sim.ref_yd[d] = None
+                planes, cnt, _, spill, _ = rebin_consuming(
+                    old, g, lambda cnt: rebin_counts(
+                        before, cnt, sim.sidx[d], cap, n is not None),
+                    spill, clip=clip, origin=origins[d],
+                    hand_back=hand_back if d == 0 else None,
+                    lost=f"the ShardedDenseSim is lost at slab {d} "
+                         "(restore a checkpoint)")
                 pre = None
             else:
                 pre = (sim.xd[d], sim.yd[d], sim.vxd[d], sim.vyd[d],
@@ -668,23 +613,25 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                     # found neither in the 3x3 window of their slot in the
                     # new idx plane nor in an export column (the lean path
                     # read them off the code before its applies)
-                    found = _found_in_window(pre[4], planes[4])
-                    if exports[d] is not None:
-                        found |= _found_in_exports(pre[4], *exports[d])
-                    spill = _spill_collect((pre[4] >= 0) & ~found, pre,
-                                           spill)
-                spill, readmitted[d] = _sh_recover(
-                    planes, merges[d], spill, readmitted[d], g,
-                    origins[d][0], vmax2)
+                    spill = collect_dropped(
+                        pre, planes[4], spill,
+                        None if exports[d] is None
+                        else _found_in_exports(pre[4], *exports[d]))
+                for dmask, src in merges[d]:    # the edge merges' drops
+                    spill = spill_collect(dmask, src, spill)
+                spill, readmitted[d] = _sh_admit(
+                    planes, spill, readmitted[d], g, origins[d][0], vmax2)
             for name, v in zip(("xd", "yd", "vxd", "vyd", "idx_d"), planes):
                 out[name].append(v)
             for name, v in zip(("sx", "sy", "svx", "svy", "sidx"), spill):
                 out[name].append(v)
-        alive = [v[0] for v in host([[_count_live(_real_cols(xd, nxl))]
+        alive = [v[0] for v in host([[live_slots(xd[:, :, 1:nxl + 1])]
                                      for xd in out["xd"]])]
-        ref_x, ref_y = refs(out["xd"], out["yd"])
+        ref_x, ref_y = zip(*map(rebin_refs, out["xd"], out["yd"],
+                                [refless] * D))
         return dataclasses.replace(
-            sim, **out, ref_xd=ref_x, ref_yd=ref_y, occ=occ_of(out["xd"]),
+            sim, **out, ref_xd=list(ref_x), ref_yd=list(ref_y),
+            occ=occ_of(out["xd"]),
             disp2=[torch.zeros_like(d2) for d2 in sim.disp2],
             alive=alive, overflow=overflow, lost=lost, dropped=dropped,
             readmitted=readmitted, age=0, rebin_count=sim.rebin_count + 1)
@@ -738,7 +685,7 @@ def extract_state(sim: ShardedDenseSim, spec: sh.ShardSpec,
     for d in range(sim.n_slabs):
         x = torch.cat([real(sim.xd[d]), sim.sx[d]])
         R = x.shape[0]
-        slot = _first_k(x < FAR * 0.5, M)
+        slot = first_k(x < FAR * 0.5, M)
         ok = slot < R
         safe = torch.clamp_max(slot, R - 1)
 

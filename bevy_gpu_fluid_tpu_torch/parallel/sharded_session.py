@@ -5,8 +5,9 @@ One x-slab per mesh device (``parallel/shard_verlet.py``), frames from
 per-slab raster strips (``parallel/shard_render.py``), original-order
 extraction through the tracked particle index, resident checkpoints that
 continue bitwise, and the in-engine validator over the whole domain.  The
-step loop is a Python loop, like ``verlet_solver.Session``'s: each step
-reads the slabs' ``disp2`` back in one sync.  Moving from one card to a
+step loop is ``verlet_solver.Session``'s (``verlet_solver.run_steps``, a
+``bgf.step`` span a step): each step reads the slabs' ``disp2`` back in
+one sync.  Moving from one card to a
 mesh is a constructor swap.  The very-large-N postures (the unfused step,
 the chunked and generator inits, owned planes, the refless trigger, the
 segmented driver) are the single card's, per slab.
@@ -23,7 +24,7 @@ from ..core.params import FluidParams, IntegrateConfig
 from ..core.state import FluidState
 from ..interact.impulse import IMPULSE, apply_impulse_arrays
 from ..models.verlet_solver import (planar_rebin_default,
-                                    refless_trigger_default, run_segmented,
+                                    refless_trigger_default, run_steps,
                                     segmented_run_default)
 from ..ops.binning import FAR
 from . import shard as sh
@@ -145,23 +146,10 @@ class ShardedSession:
     # ---- stepping -------------------------------------------------------
 
     def run(self, n_steps: int, chunk: int | None = None) -> None:
-        """Advance n_steps: per step, a collective rebin if the trigger
-        fired, then the slabs' kernels.  ``chunk=K`` runs the steps as
-        sequential calls of at most K steps (the reference's API; the same
-        trajectory bit for bit; for the segmented driver, its segment
-        bound)."""
-        if chunk is not None and chunk < 1:
-            raise ValueError(f"chunk={chunk}: want at least 1")
-        if self.segmented:
-            run_segmented(self, n_steps, chunk, self._steps.pure_step,
-                          self._steps.need, self._steps.rebin)
-            return
-        done = 0
-        while done < n_steps:
-            k = n_steps - done if chunk is None else min(chunk, n_steps - done)
-            for _ in range(k):
-                self.sim = self._steps.step(self.sim)
-            done += k
+        """Advance n_steps (``verlet_solver.run_steps``): per step, a
+        collective rebin if the trigger fired, then the slabs' kernels."""
+        run_steps(self, n_steps, chunk, self._steps.pure_step,
+                  self._steps.need, self._steps.rebin, self.segmented)
 
     def _frame_fn(self, px_per_cell: int, mode: str):
         key = (px_per_cell, mode)

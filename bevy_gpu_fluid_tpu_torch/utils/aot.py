@@ -26,7 +26,7 @@ hand-written kernel, on a CPU tensor runs its twin):
 
 ``load_exported`` returns a callable that drives the loaded pieces with the
 port's own trigger and rebin, rebuilt from the parameters the artifact
-records, exactly as ``verlet_solver.run_segmented`` drives ``pure_step``,
+records, exactly as ``verlet_solver.run_steps`` drives ``pure_step``,
 ``need`` and ``rebin``; so a call is bitwise the live Session's run from
 the same snapshot, and stateless (the snapshot it is given is not
 changed).  Postures whose kernels write in place or consume their inputs

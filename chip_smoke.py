@@ -2759,7 +2759,7 @@ def collecting_rebin(sess, base: int) -> dict:
     live particles of a 3 x 3 block of cells inside the fluid into its
     centre cell (~4 a cell at cap 8: ~28 drops), then measures, in bytes
     over ``base``, the peak of each transient of the fused rebin's recovery
-    on top of the resident planes: K3, the drop test (``_found_in_window``,
+    on top of the resident planes: K3, the drop test (``found_in_window``,
     and its form before the repair), the collect and the admit; then the
     Session's own rebin (the bins' age forces it) and one step.  Returns
     the peaks and the drops."""
@@ -2792,14 +2792,14 @@ def collecting_rebin(sess, base: int) -> dict:
     *planes, cnt = peak("collect_reslot",
                         lambda: reslot.reslot_cuda(*old, grid))
     found = peak("collect_found",
-                 lambda: vs._found_in_window(s.idx_d, planes[4]))
+                 lambda: vs.found_in_window(s.idx_d, planes[4]))
     found0 = peak("collect_found_before",
                   lambda: found_in_window_dense(s.idx_d, planes[4]))
     check(torch.equal(found, found0), "the drop test changed its answer")
     dropped = (s.idx_d >= 0) & ~found
     drops = int(dropped.sum())
     del found, found0
-    spill = peak("collect_spill", lambda: vs._spill_collect(
+    spill = peak("collect_spill", lambda: vs.spill_collect(
         dropped, old, (s.sx, s.sy, s.svx, s.svy, s.sidx)))
     del dropped
     q = vs._skin(params, grid) / cfg.dt
@@ -2885,7 +2885,7 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
             torch.cuda.reset_peak_memory_stats()
             code, _ = reslot.select_cuda(s.xd, s.yd, grid, s.occ)
             dropped = (s.idx_d >= 0) & ~reslot.taken_mask(code, grid.cap)
-            vs._spill_collect(dropped, (s.xd, s.yd, s.vxd, s.vyd, s.idx_d),
+            vs.spill_collect(dropped, (s.xd, s.yd, s.vxd, s.vyd, s.idx_d),
                               (s.sx, s.sy, s.svx, s.svy, s.sidx))
             torch.cuda.synchronize()
             f["collect"] = torch.cuda.max_memory_allocated() - base
@@ -3055,7 +3055,7 @@ def footprints_and_ceiling(kernels: list, card: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     code, _ = reslot.select_cuda(s.xd, s.yd, grid, s.occ)
     dropped = (s.idx_d >= 0) & ~reslot.taken_mask(code, grid.cap)
-    vs._spill_collect(dropped, (s.xd, s.yd, s.vxd, s.vyd, s.idx_d),
+    vs.spill_collect(dropped, (s.xd, s.yd, s.vxd, s.vyd, s.idx_d),
                       (s.sx, s.sy, s.svx, s.svy, s.sidx))
     torch.cuda.synchronize()
     collect_planes = torch.cuda.max_memory_allocated() / plane_bytes(grid)

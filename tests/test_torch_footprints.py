@@ -5,7 +5,7 @@
 footprints, measured by ``chip_smoke.py`` phase 14 on an H100, now over a
 rebin that collects drops too; ``planar_rebin_default`` switches to the
 planar rebin exactly where that many planes stop fitting the card.  The
-fused rebin's drop test (``_found_in_window``) compares one slot layer of
+fused rebin's drop test (``found_in_window``) compares one slot layer of
 a window cell at a time; its answer is held here, bit for bit, against the
 form that compared all cap layers at once, on planes whose rebin drops
 particles.
@@ -92,7 +92,7 @@ def test_drop_test_on_a_rebin_that_drops():
     s.yd[block][live] = float(grid.origin_y) + (r - grid.row0 + 0.5) * float(
         grid.cell_size) + spread.flip(0)
     new = reslot.reslot_torch(s.xd, s.yd, s.vxd, s.vyd, s.idx_d, grid)
-    found = tvs._found_in_window(s.idx_d, new[4])
+    found = tvs.found_in_window(s.idx_d, new[4])
     assert torch.equal(found, _found_dense(s.idx_d, new[4]))
     dropped = (s.idx_d >= 0) & ~found
     assert int(dropped.sum()) == k - grid.cap

@@ -223,19 +223,34 @@ def test_planar_rebin_bitwise_fused(d4):
             assert a == b, f.name
 
 
-def test_one_slab_is_the_single_card_session(d4):
-    """D = 1: the plain clip, no halo, no merge; the slab's planes and
-    counters are bitwise the single-card Session's on the same grid (12
-    row blocks, so the Session steps on K1 + K2 too, not K5)."""
+# (slab step options, the Session's): the default posture, the planar
+# rebin, and the memory ceiling's (refless trigger, planar rebin that
+# consumes owned planes)
+POSTURES = {
+    "default": ({}, {}),
+    "planar": (dict(planar=True), dict(planar_rebin=True)),
+    "ceiling": (dict(refless=True, planar=True, donate=True),
+                dict(refless_trigger=True, planar_rebin=True, donate=True)),
+}
+
+
+@pytest.mark.parametrize("posture", list(POSTURES))
+def test_one_slab_is_the_single_card_session(d4, posture):
+    """D = 1: the plain clip, no halo, no merge; in each posture the
+    slab's planes, disp2 and counters are bitwise the single-card
+    Session's on the same grid (12 row blocks, so the Session steps on
+    K1 + K2 too, not K5)."""
+    slab_kw, sess_kw = POSTURES[posture]
     state_j = d4["state_j"]
     spec1 = tsh.ShardSpec.build(h=0.045 * 1.5, x_min=-1.0, x_max=2.5,
                                 y_max=6.0, n_devices=1, capacity=1024)
     assert spec1.local_grid.n_row_blocks >= cuda_solver.MONO_MAX_BLOCKS
-    sim1, _ = _run_port(spec1, state_j, STEPS, n=d4["n"])
+    sim1, _ = _run_port(spec1, state_j, STEPS, n=d4["n"], **slab_kw)
     sess = tvs.Session(convert.state_from(_np(state_j), "cpu"), PARAMS, CFG,
-                       spec1.local_grid, device="cpu")
+                       spec1.local_grid, device="cpu", **sess_kw)
     sess.run(STEPS)
-    for name in ("xd", "yd", "vxd", "vyd", "rho_d", "idx_d", "occ"):
+    for name in ("xd", "yd", "vxd", "vyd", "rho_d", "idx_d", "occ",
+                 "disp2"):
         assert torch.equal(getattr(sim1, name)[0],
                            getattr(sess.sim, name)), name
     assert sim1.rebin_count == sess.sim.rebin_count >= 3

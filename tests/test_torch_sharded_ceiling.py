@@ -37,6 +37,7 @@ from bevy_gpu_fluid_tpu.parallel.sharded_session import \
 from bevy_gpu_fluid_tpu_torch import from_positions
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver, grid_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as tvs
+from bevy_gpu_fluid_tpu_torch.ops import reslot
 from bevy_gpu_fluid_tpu_torch.parallel import shard as tsh
 from bevy_gpu_fluid_tpu_torch.parallel import shard_verlet as tsv
 from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
@@ -404,6 +405,26 @@ def test_owned_planar_rebin_with_recovery_bitwise(refless):
     a, b = sims
     assert sum(a.readmitted) >= 1 and a.overflow == [1, 0]
     _sims_equal(a, b, None if refless else spec.nx_local)
+
+
+def test_rebin_counts_in_slabs_bitwise(scene, monkeypatch):
+    """The slab step's live-slot counts and slot bounds taken in row slabs
+    (planes of more than ``reslot.SLAB_MIN`` elements, the ceiling's): a
+    D = 2 ceiling-posture session (refless trigger, owned planes, the
+    planar rebin consuming them) runs bitwise the one that counts each
+    plane in one pass."""
+    spec, state = scene
+    kw = dict(refless_trigger=True, planar_rebin=True, donate=True)
+    one = _port(spec, state, **kw)
+    one.run(STEPS + MORE)
+    monkeypatch.setattr(reslot, "SLAB_MIN", 0)    # slabs even at this size,
+    monkeypatch.setattr(reslot, "SLABS", 5)       # a ragged last one
+    slabs = _port(spec, state, **kw)
+    assert reslot.slab_rows(slabs.sim.xd[0].shape) < \
+        slabs.sim.xd[0].shape[0]
+    slabs.run(STEPS + MORE)
+    assert slabs.rebin_count >= 3
+    _sims_equal(one.sim, slabs.sim)
 
 
 @pytest.mark.parametrize("wrapper, fail_at", [("select_cuda", 1),
