@@ -25,15 +25,20 @@
 // The single-card path passes [0, nx_pad).
 //
 // What bounds it on the H100.  The bytes bound is 11 planes (7 read, 4
-// written): 157 MB at the 1M-particle shapes [696, 8, 640], 0.047 ms at
-// 3.35 TB/s.  A thread per slot over the whole plane took 0.315 ms on
-// instruction issue: every slot, 72% of them dead at 1M, ran all 9 x kmax
-// taps of ~45 instructions, with the neighbour's EOS and an IEEE division
-// taken again at every tap.  The tiled kernel runs ~0.088 ms (H100 80GB
-// HBM3, 700 W; PERF.md): with the taps removed it still takes ~0.065 ms,
-// so its memory phases (staging five planes, four plane writes, the dead
-// slots' copies) bound it now, at 5 blocks per SM (40 registers, 41 KB of
-// shared memory, which binds).
+// written; 9 refless): 157 MB at the 1M-particle shapes [696, 8, 640],
+// 0.047 ms at 3.35 TB/s.  A thread per slot over the whole plane took
+// 0.315 ms on instruction issue: every slot, 72% of them dead at 1M, ran all
+// 9 x kmax taps of ~45 instructions, with the neighbour's EOS and an IEEE
+// division taken again at every tap.  The tiled kernel runs ~0.08 ms at 1M
+// and ~5.6 ms at 96M (H100 80GB HBM3, 700 W; PERF.md).  At 96M its memory
+// phases alone (staging, the plane writes) take ~3.7 ms and its taps ~2.9
+// ms of issue, overlapped only by the blocks resident beside each other:
+// occupancy binds.  So the kernel is built for 5 blocks per SM
+// (__launch_bounds__: 48 registers, no spill; its 41 KB of shared memory
+// allows 5), and its dead-slot pass reads nothing from device memory.
+// The walk tile of bgf_walk.cuh (16-byte staging, two slots a thread) was
+// measured in its place and lost where the counts vary (PERF.md): its
+// 57-64 registers leave 4 blocks per SM.
 //
 // Design: the halo tile of bgf_common.cuh.  A block stages its window once
 // in shared memory, coalesced along nx_pad with the columns wrapped:
@@ -45,21 +50,24 @@
 // up to the largest count of its 9 cells (bgf::tile_accel: a candidate past
 // its own cell's count holds FAR: hr = 0, its term is exactly 0 and the
 // sums never hold -0), then runs the epilogue (bgf::integrate) and keeps
-// the displacement max.  A dead slot gets what
-// the masked epilogue gives it, x and y unchanged and zero velocity, from
-// a coalesced pass over the tile's slots with no taps.  The max is a block
-// reduction and one atomicMax on the float bits (all values are >= +0, so
-// integer order is float order) into a scalar the host zeroes on the same
-// stream (bgf::block_max_atomic).  Offsets inside the window are 32-bit
-// from one 64-bit base per block.  The launch covers the ghost blocks and
-// writes their fills (FAR positions, zero velocities).  The pair term and
-// the epilogue are bgf_common.cuh's, shared with K5 and K8.
+// the displacement max.  A dead slot gets what the masked epilogue gives
+// it, x and y unchanged and zero velocity, from a coalesced pass over the
+// tile's slots with no taps that takes x and y from the staged window
+// (below kmax) or writes FAR (at or past it, where every slot holds FAR:
+// live slots are a prefix of each cell), as K5 and T1 take them.  The max
+// is a block reduction and one atomicMax on the float bits (all values are
+// >= +0, so integer order is float order) into a scalar the host zeroes on
+// the same stream (bgf::block_max_atomic).  Offsets inside the window are
+// 32-bit from one 64-bit base per block.  The launch covers the ghost
+// blocks and writes their fills (FAR positions, zero velocities).  The pair
+// term and the epilogue are bgf_common.cuh's, shared with K5 and K8.
 
 #include "bgf_common.cuh"
 
 namespace {
 
 constexpr int kBlock = bgf::kThreads;  // 256 (128 measured slower)
+constexpr int kMinBlocks = 5;          // blocks per SM it is built for
 
 // Dynamic shared memory: the (x, y, vx, vy) and (p, 1/rho) windows, the
 // window counts, the pair list and the pair count.
@@ -69,7 +77,7 @@ int forces_integrate_smem(int cap) {
 }
 
 template <bool kRefless>
-__global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
+__global__ void __launch_bounds__(kBlock, kMinBlocks) forces_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ rho, const float* __restrict__ ref_x,
@@ -136,9 +144,11 @@ __global__ void __launch_bounds__(kBlock) forces_integrate_kernel(
   }
   for_tile_slots<kBlock>(t, cap, [&](int tr, int s, int tc) {
     if (s >= cnt[(tr + 1) * kWinCols + tc + 1]) {
+      const float4 v = s < kmax ? win[(tr + 1) * rs + s * kWinCols + tc + 1]
+                                : make_float4(kFar, kFar, 0.0f, 0.0f);
       const long long g = base + tile_offset(t, tr, s, tc, cap, nx_pad);
-      ox[g] = x[g];
-      oy[g] = y[g];
+      ox[g] = v.x;
+      oy[g] = v.y;
       ovx[g] = 0.0f;
       ovy[g] = 0.0f;
     }

@@ -703,6 +703,16 @@ def _k2_refless_matches(s, grid, rho):
     assert abs(float(got[4]) - float(want[4])) <= 1e-4 * float(want[4])
 
 
+def test_forces_integrate_holds_five_blocks_per_sm(cuda):
+    """K2, both triggers, is built for five blocks per SM (its kMinBlocks):
+    the card holds five at cap 8 (the shared memory allows five), with no
+    spill."""
+    for name in ("forces_integrate", "forces_integrate_refless"):
+        occ = _build.occupancy(name, 8)
+        assert occ["blocks_per_sm"] == 5, (name, occ)
+        assert occ["registers"] <= 48 and occ["local_bytes"] == 0, occ
+
+
 def test_forces_integrate_refless_kernel(moving_sim):
     s = moving_sim
     rho = cuda_solver.density_cuda(s.xd, s.yd, PARAMS, GRID, s.occ)
