@@ -38,6 +38,16 @@ stale value under the ref-based trigger, ROADMAP S1; the pure step that
 follows overwrites it, so the trajectory is the same).  The counters are
 host ints per slab; a rebin reads them back in two syncs for all slabs.
 
+The slab path's own host work carries the single card's spans
+(``utils/profiling.span``: host ranges while a profiler records, a null
+context otherwise): ``bgf.halo`` around each halo of a step (the four
+planes, then rho), ``bgf.read.trigger`` around the trigger's sync,
+``bgf.rebin`` around the collective rebin and, inside it,
+``bgf.rebin.exchange`` (the captures, their shifts and the edge merges),
+``bgf.read.rebin_counts`` and ``bgf.read.live`` (its two syncs), and
+``bgf.read.readmit`` around a re-admission's count.  None is in
+``mesh.py``'s collectives, which other paths call too.
+
 What a slab shares with the single card is the single card's code
 (``models/verlet_solver.py``: the trigger, the references, the kernel
 sequence, the owned planar rebin, the collect, the live counts, the run
@@ -71,6 +81,7 @@ from ..models.verlet_solver import (chunk_init_body, chunk_init_carry,
 from ..ops import reslot as reslot_ops
 from ..ops.binning import FAR, inv_cell, to_dense
 from ..ops.kernels import eos_pressure, self_density
+from ..utils.profiling import span
 from . import shard as sh
 from .mesh import SlabMesh
 
@@ -259,7 +270,8 @@ def _sh_admit(planes, spill, readmitted: int, grid, ox, vmax2):
     r, s, c = row[admit], (base + rank)[admit], col[admit]
     for plane, vals in zip(planes, spill):
         plane[r, s, c] = vals[admit]
-    readmitted += int(admit.sum())
+    with span("bgf.read.readmit"):
+        readmitted += int(admit.sum())
     spill = tuple(torch.where(admit, fill, v)
                   for v, fill in zip(spill, _PLANE_FILLS))
     return spill, readmitted
@@ -488,7 +500,8 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         sync for all slabs."""
         if sim.age >= max_age:
             return True
-        return mesh.any([d2 > threshold for d2 in sim.disp2])
+        with span("bgf.read.trigger"):
+            return mesh.any([d2 > threshold for d2 in sim.disp2])
 
     def pure_step(sim: ShardedDenseSim) -> ShardedDenseSim:
         if not donate:      # the given sim stays a snapshot
@@ -496,14 +509,16 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                 sim, xd=list(sim.xd), yd=list(sim.yd), vxd=list(sim.vxd),
                 vyd=list(sim.vyd), rho_d=list(sim.rho_d),
                 disp2=list(sim.disp2))
-        planes = sh.fill_ghost_cols_multi(
-            mesh, list(zip(sim.xd, sim.yd, sim.vxd, sim.vyd)), nxl,
-            halo_fills, inplace=donate)
+        with span("bgf.halo"):
+            planes = sh.fill_ghost_cols_multi(
+                mesh, list(zip(sim.xd, sim.yd, sim.vxd, sim.vyd)), nxl,
+                halo_fills, inplace=donate)
         rho = [density(p[0], p[1], occ, dead)
                for p, occ, dead in zip(planes, sim.occ, sim.rho_d)]
         if D > 1:
-            rho = [r[0] for r in sh.fill_ghost_cols_multi(
-                mesh, [(r,) for r in rho], nxl, (0.0,), inplace=True)]
+            with span("bgf.halo"):
+                rho = [r[0] for r in sh.fill_ghost_cols_multi(
+                    mesh, [(r,) for r in rho], nxl, (0.0,), inplace=True)]
         for d in range(D):
             x, y, vx, vy = planes[d]
             planes[d] = None
@@ -518,7 +533,11 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
         return sim
 
     def rebin(sim: ShardedDenseSim) -> ShardedDenseSim:
-        slabs, stats, exports, merges = [], [], [], []
+        with span("bgf.rebin"):
+            return collective_rebin(sim)
+
+    def collective_rebin(sim: ShardedDenseSim) -> ShardedDenseSim:
+        slabs, stats = [], []
         if not donate:      # the given sim stays a snapshot
             sim = dataclasses.replace(sim, xd=list(sim.xd),
                                       idx_d=list(sim.idx_d))
@@ -562,39 +581,41 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                 *planes, cnt = reslot(*pre, d)
             slabs.append([pre, planes, cnt, spill])
             stats.append([before])
+        exports, merges = [None] * D, [[] for _ in range(D)]
+        drops = [torch.zeros((), dtype=torch.int64, device=cnt.device)
+                 for _, _, cnt, _ in slabs]
         if D > 1:
-            # the captures in the ghost columns: lane 0 = left exits, lane
-            # nxl+1 = right exits; idx travels as float32 bits
-            ex_l = [torch.stack([p[:, :, 0] for p in pl[:4]]
-                                + [pl[4][:, :, 0].view(torch.float32)])
-                    for _, pl, _, _ in slabs]
-            ex_r = [torch.stack([p[:, :, nxl + 1] for p in pl[:4]]
-                                + [pl[4][:, :, nxl + 1].view(torch.float32)])
-                    for _, pl, _, _ in slabs]
-            from_right = mesh.shift_bwd(ex_l, dead_col[-1])
-            from_left = mesh.shift_fwd(ex_r, dead_col[0])
-        for d, (pre, planes, cnt, _) in enumerate(slabs):
-            drop_now = torch.zeros((), dtype=torch.int64, device=cnt.device)
-            merge = []
-            if D > 1:
-                # the edge slabs fold their own outward captures back in
-                src1 = ex_l[0] if d == 0 else from_left[d]
-                srcn = ex_r[-1] if d == D - 1 else from_right[d]
-                for lane, src in ((1, src1), (nxl, srcn)):
-                    src = (*src[:4], src[4].contiguous().view(torch.int32))
-                    dm = merge_col(planes, lane, src, cnt[:, lane], cap)
-                    merge.append((dm, src))
-                    drop_now = drop_now + dm.sum()
-                exports.append((ex_l[d][4].view(torch.int32),
-                                ex_r[d][4].view(torch.int32)))
-                planes[4][:, :, 0] = -1
-                planes[4][:, :, nxl + 1] = -1
-            else:
-                exports.append(None)
-            merges.append(merge)
-            stats[d] += [cnt.sum(), torch.clamp_max(cnt, cap).sum(), drop_now,
+            with span("bgf.rebin.exchange"):
+                # the captures in the ghost columns: lane 0 = left exits,
+                # lane nxl+1 = right exits; idx travels as float32 bits
+                ex_l = [torch.stack([p[:, :, 0] for p in pl[:4]]
+                                    + [pl[4][:, :, 0].view(torch.float32)])
+                        for _, pl, _, _ in slabs]
+                ex_r = [torch.stack([p[:, :, nxl + 1] for p in pl[:4]]
+                                    + [pl[4][:, :, nxl + 1].view(
+                                        torch.float32)])
+                        for _, pl, _, _ in slabs]
+                from_right = mesh.shift_bwd(ex_l, dead_col[-1])
+                from_left = mesh.shift_fwd(ex_r, dead_col[0])
+                for d, (_, planes, cnt, _) in enumerate(slabs):
+                    # the edge slabs fold their own outward captures back in
+                    src1 = ex_l[0] if d == 0 else from_left[d]
+                    srcn = ex_r[-1] if d == D - 1 else from_right[d]
+                    for lane, src in ((1, src1), (nxl, srcn)):
+                        src = (*src[:4],
+                               src[4].contiguous().view(torch.int32))
+                        dm = merge_col(planes, lane, src, cnt[:, lane], cap)
+                        merges[d].append((dm, src))
+                        drops[d] = drops[d] + dm.sum()
+                    exports[d] = (ex_l[d][4].view(torch.int32),
+                                  ex_r[d][4].view(torch.int32))
+                    planes[4][:, :, 0] = -1
+                    planes[4][:, :, nxl + 1] = -1
+        for d, (_, _, cnt, _) in enumerate(slabs):
+            stats[d] += [cnt.sum(), torch.clamp_max(cnt, cap).sum(), drops[d],
                          (sim.sidx[d] >= 0).any()]
-        counts = host(stats)
+        with span("bgf.read.rebin_counts"):
+            counts = host(stats)
         overflow, lost, dropped = (list(sim.overflow), list(sim.lost),
                                    list(sim.dropped))
         readmitted = list(sim.readmitted)
@@ -625,8 +646,9 @@ def make_sharded_verlet_step(params: FluidParams, cfg: IntegrateConfig,
                 out[name].append(v)
             for name, v in zip(("sx", "sy", "svx", "svy", "sidx"), spill):
                 out[name].append(v)
-        alive = [v[0] for v in host([[live_slots(xd[:, :, 1:nxl + 1])]
-                                     for xd in out["xd"]])]
+        with span("bgf.read.live"):
+            alive = [v[0] for v in host([[live_slots(xd[:, :, 1:nxl + 1])]
+                                         for xd in out["xd"]])]
         ref_x, ref_y = zip(*map(rebin_refs, out["xd"], out["yd"],
                                 [refless] * D))
         return dataclasses.replace(

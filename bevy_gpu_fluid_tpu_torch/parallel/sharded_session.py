@@ -33,16 +33,18 @@ from .mesh import SlabMesh
 
 
 def _sharded_fingerprint(fused: bool, stencils, recover: bool,
-                         refless: bool) -> dict:
+                         refless: bool, max_age: int) -> dict:
     """Solver knobs a checkpoint records and a restore must match, in the
     reference's kinds (its ``_sharded_fingerprint``): the fused kernels
     ("fused-pallas"), an explicit stencil pair ("custom-stencils") or the
-    plain one ("xla-stencils"), recovery, and the refless trigger (it
-    changes the rebin schedule).  The planar rebin, the inits, donation
-    and the segmented driver are bit-neutral and absent."""
+    plain one ("xla-stencils"), recovery, and the refless trigger and the
+    bins' age limit (both change the rebin schedule; the reference's
+    session has no age knob, and its artifacts lack the key).  The planar
+    rebin, the inits, donation and the segmented driver are bit-neutral
+    and absent."""
     return {"solver": "fused-pallas" if fused else
             ("custom-stencils" if stencils is not None else "xla-stencils"),
-            "recovery": recover, "refless": refless}
+            "recovery": recover, "refless": refless, "max_age": max_age}
 
 
 class ShardedSession:
@@ -59,6 +61,9 @@ class ShardedSession:
     ``mesh`` defaults to ``SlabMesh(n=spec.n_devices)``, all slabs on the
     current CUDA card; pass ``SlabMesh(["cpu"] * D)`` for the CPU.
     ``recover=False`` counts drops without collecting or re-admitting them.
+    ``max_age`` is the bins' age at which a rebin comes whatever the
+    trigger reads (``Session``'s knob; a checkpoint and an exported run
+    record it).
     ``fused=False`` steps on ``stencils`` (None: the plain
     ``grid_solver.XLA_STENCILS``; ``cuda_solver.make_stencils(g)`` for
     K1 + K8) with the integrate as torch ops.
@@ -90,7 +95,7 @@ class ShardedSession:
                  planar_rebin: bool | None = None,
                  init_chunks: int | None = None, donate: bool = False,
                  segmented: bool | None = None,
-                 refless_trigger: bool | None = None,
+                 refless_trigger: bool | None = None, max_age: int = 64,
                  _sim=None, _n: int | None = None, _gen=None):
         self.mesh = SlabMesh(n=spec.n_devices) if mesh is None else mesh
         self.params = params
@@ -111,13 +116,14 @@ class ShardedSession:
         self.segmented = segmented
         self.donate = donate
         self._steps = shard_verlet.make_sharded_verlet_step(
-            params, cfg, spec, self.mesh, n=self.n if recover else None,
+            params, cfg, spec, self.mesh, max_age=max_age,
+            n=self.n if recover else None,
             spill_cap=spill_cap, planar=planar_rebin, stencils=stencils,
             fused=fused, init_chunks=init_chunks, refless=refless_trigger,
             gen=_gen, gen_n=self.n if _gen is not None else None,
             donate=donate)
         self._fingerprint = _sharded_fingerprint(fused, stencils, recover,
-                                                 refless_trigger)
+                                                 refless_trigger, max_age)
         self._frames: dict = {}
         if state is not None:
             self.sim = self._steps.init(sh.shard_state(state, spec,
@@ -215,14 +221,15 @@ class ShardedSession:
                 fused: bool = True, stencils=None, recover: bool = True,
                 planar_rebin: bool | None = None,
                 refless_trigger: bool | None = None, donate: bool = False,
-                segmented: bool | None = None) -> "ShardedSession":
+                segmented: bool | None = None,
+                max_age: int = 64) -> "ShardedSession":
         """A session from ``save`` (or the reference's ``save_sharded``),
         slab d on ``mesh.devices[d]`` (the card by default); it continues
         bitwise.  The solver knobs are supplied again and must match the
         artifact's fingerprint (``fused``, ``stencils``' kind, ``recover``,
-        the trigger), or ValueError.  ``refless_trigger=None`` resolves
-        through ``shard_verlet.slab_default`` BEFORE the check, as the
-        reference does."""
+        the trigger, ``max_age``), or ValueError.  ``refless_trigger=None``
+        resolves through ``shard_verlet.slab_default`` BEFORE the check, as
+        the reference does."""
         from ..utils import checkpoint
         if mesh is None:
             with np.load(checkpoint._norm(path)) as z:
@@ -233,13 +240,15 @@ class ShardedSession:
                 refless_trigger_default, spec.local_grid, mesh, donate)
         checkpoint.check_fingerprint(
             checkpoint.load_fingerprint(path),
-            _sharded_fingerprint(fused, stencils, recover, refless_trigger),
+            _sharded_fingerprint(fused, stencils, recover, refless_trigger,
+                                 max_age),
             "ShardedSession.restore")
         return cls(None, params, cfg, spec, mesh, fused=fused,
                    stencils=stencils, recover=recover,
                    spill_cap=sim.sx[0].shape[0], planar_rebin=planar_rebin,
                    donate=donate, segmented=segmented,
-                   refless_trigger=refless_trigger, _sim=sim, _n=n)
+                   refless_trigger=refless_trigger, max_age=max_age,
+                   _sim=sim, _n=n)
 
     def export_run(self, n_steps: int, path: str) -> None:
         """Artifact of ``run(n_steps)`` (``utils/aot.export_sharded_run``):

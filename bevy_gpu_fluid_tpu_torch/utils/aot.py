@@ -183,7 +183,8 @@ def export_sharded_run(sess, n_steps: int, path: str) -> None:
     D = spec.n_devices
     n = sess.n if fp["recovery"] else None
     steps = make_sharded_verlet_step(sess.params, sess.cfg, spec, sess.mesh,
-                                     n=n, planar=False, fused=True,
+                                     max_age=fp["max_age"], n=n,
+                                     planar=False, fused=True,
                                      refless=sess.refless_trigger,
                                      kernels=ops)
     blank = {f.name: None for f in dataclasses.fields(ShardedDenseSim)
@@ -202,7 +203,8 @@ def export_sharded_run(sess, n_steps: int, path: str) -> None:
                   "cfg": ops.pack_cfg(sess.cfg),
                   "grid": ops.pack_grid(spec.local_grid),
                   "spec": {k: getattr(spec, k) for k in _SPEC},
-                  "n": n, "refless": sess.refless_trigger},
+                  "max_age": fp["max_age"], "n": n,
+                  "refless": sess.refless_trigger},
            {"step": program})
 
 
@@ -237,7 +239,8 @@ def _sharded_parts(meta: dict, modules: dict, sim):
     mesh = SlabMesh([x.device for x in sim.xd])
     steps = make_sharded_verlet_step(
         ops.params_of(meta["params"]), ops.cfg_of(meta["cfg"]), spec, mesh,
-        n=meta["n"], planar=False, fused=True, refless=meta["refless"])
+        max_age=meta["max_age"], n=meta["n"], planar=False, fused=True,
+        refless=meta["refless"])
     step_mod = modules["step"]
 
     def pure(sim):

@@ -161,6 +161,23 @@ def test_exported_sharded_run_roundtrip(tmp_path):
     assert _sims_equal(loaded(sim0), out)          # stateless
 
 
+def test_exported_sharded_run_keeps_max_age(tmp_path):
+    """The artifact records the session's age limit: its rebuilt trigger
+    rebins when the bins age out every 2 steps, bitwise the live run."""
+    spec = shard.ShardSpec.build(h=0.045 * 1.5, x_min=-1.0, x_max=2.5,
+                                 y_max=3.0, n_devices=2, capacity=1024)
+    state = bt.init_grid(20, 6, 0.04, "cpu")
+    sess = ShardedSession(state, PARAMS, CFG, spec, SlabMesh(["cpu"] * 2),
+                          max_age=2)
+    sim0 = sess.sim
+    path = os.fspath(tmp_path / "shard_age2.bgfexp")
+    sess.export_run(5, path)
+    out = aot.load_exported(path, out_like=sim0)(sim0)
+    sess.run(5)
+    assert sess.rebin_count - sim0.rebin_count == 2
+    assert _sims_equal(out, sess.sim)
+
+
 def test_exported_flat_outputs_without_template(session_artifact):
     # without out_like the loader hands back the fields in order
     _, sim0, path, _ = session_artifact

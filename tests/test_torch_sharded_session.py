@@ -218,6 +218,29 @@ def test_save_restore_continues_bitwise(sess2, tmp_path):
         ShardedSession.restore(path, SlabMesh(["cpu"] * 4))
 
 
+def test_save_restore_records_max_age(tmp_path):
+    """A session whose bins age out every 4 steps saves its age limit: a
+    restore with it continues bitwise, one without it is refused."""
+    spec, state = _scene()
+    st = ShardedSession(convert.state_from(_np(state), "cpu"), PARAMS, CFG,
+                        convert.spec_from(spec), _mesh(), max_age=4)
+    ages = []
+    for _ in range(STEPS):
+        ages.append(st.sim.age)
+        st.run(1)
+    assert max(ages) == 4 and st.rebin_count >= STEPS // 5
+    path = os.fspath(tmp_path / "slabs_age4")
+    st.save(path)
+    with pytest.raises(ValueError, match="max_age"):
+        ShardedSession.restore(path, _mesh())
+    back = ShardedSession.restore(path, _mesh(), max_age=4)
+    a = ShardedSession(None, PARAMS, CFG, st.spec, _mesh(), _sim=st.sim,
+                       _n=st.n, max_age=4)
+    a.run(MORE)
+    back.run(MORE)
+    _sims_equal(back.sim, a.sim)
+
+
 def test_jax_artifact_continues_in_the_port(sess2, tmp_path):
     """A JAX ``save_sharded`` artifact restores in the port (slot
     structure, counters, spill) and continues where the JAX session

@@ -1,10 +1,11 @@
 """The program's spans (``utils/profiling.span``), counted on the CPU under
 ``torch.profiler``: a Session's steps, trigger reads, rebins and their
-counter reads in every step-loop posture; the eager step's binning and its
-overflow read; the raster and the frame pump.  With no profiler running a
-span is one shared null context; traced and untraced runs leave the same
-planes and counters bit for bit, and the spans add no torch operation
-(no read, sync or allocation) to the run they mark."""
+counter reads in every step-loop posture; the slab step's halos, trigger
+read, collective rebin, exchange and its two reads; the eager step's
+binning and its overflow read; the raster and the frame pump.  With no
+profiler running a span is one shared null context; traced and untraced
+runs leave the same planes and counters bit for bit, and the spans add no
+torch operation (no read, sync or allocation) to the run they mark."""
 
 import collections
 import contextlib
@@ -17,6 +18,9 @@ import bevy_gpu_fluid_tpu_torch as bt
 from bevy_gpu_fluid_tpu_torch.models import cuda_solver, grid_solver
 from bevy_gpu_fluid_tpu_torch.models import verlet_solver as vs
 from bevy_gpu_fluid_tpu_torch.ops import binning
+from bevy_gpu_fluid_tpu_torch.parallel import shard, shard_verlet
+from bevy_gpu_fluid_tpu_torch.parallel.mesh import SlabMesh
+from bevy_gpu_fluid_tpu_torch.parallel.sharded_session import ShardedSession
 from bevy_gpu_fluid_tpu_torch.render import pump, raster
 from bevy_gpu_fluid_tpu_torch.utils import profiling
 
@@ -243,5 +247,88 @@ def test_spans_add_no_torch_operation(monkeypatch):
         monkeypatch.setattr(mod, "span", lambda name: contextlib.nullcontext())
     _, bare = _traced(work)
     assert {n for n, *_ in spanned if n.startswith("bgf.")} == NAMES
+    assert not [n for n, *_ in bare if n.startswith("bgf.")]
+    assert ops(spanned) == ops(bare)
+
+
+# The slab step: a lattice across both slabs of a two-slab CPU mesh (the
+# boundary at x = 0.81125, a lattice column 6.25 mm left of it), kicked
+# right, so that its collective rebins (the bins age out every 4 steps)
+# carry particles across the boundary
+SLAB_NAMES = {"bgf.step", "bgf.read.trigger", "bgf.halo", "bgf.rebin",
+              "bgf.rebin.exchange", "bgf.read.rebin_counts", "bgf.read.live"}
+SLAB_MAX_AGE = 4
+
+
+def _slab_session():
+    state = bt.init_grid(40, 6, 0.04, "cpu")
+    state = state.replace(x=state.x - 0.475,
+                          vx=torch.full_like(state.x, 3.0))
+    spec = shard.ShardSpec.build(h=0.045 * 1.75, x_min=-1.0, x_max=2.5,
+                                 y_max=1.0, n_devices=2, capacity=1024)
+    return ShardedSession(state, bt.FluidParams.demo(),
+                          bt.IntegrateConfig.create(x_min=-1.0, x_max=2.5),
+                          spec, SlabMesh(["cpu"] * 2), max_age=SLAB_MAX_AGE)
+
+
+def test_slab_spans_count_halos_reads_rebins_and_exchanges():
+    sess = _slab_session()
+    alive = sess.alive
+    before = sess.rebin_count
+    ages = []
+
+    def run():
+        for _ in range(STEPS):
+            ages.append(sess.sim.age)
+            sess.run(1)
+
+    _, ev = _traced(run)
+    rebins = sess.rebin_count - before
+    assert rebins >= 2 and sess.alive != alive
+    assert {n for n, *_ in ev if n.startswith("bgf.")} == SLAB_NAMES
+    assert len(_spans(ev, "bgf.step")) == STEPS
+    # the four planes' halo, then rho's, every step
+    assert len(_spans(ev, "bgf.halo")) == 2 * STEPS
+    assert _inside(_spans(ev, "bgf.halo"), _spans(ev, "bgf.step"))
+    # the trigger reads once a step unless the bins aged out
+    assert len(_spans(ev, "bgf.read.trigger")) == sum(
+        a < SLAB_MAX_AGE for a in ages)
+    assert _inside(_spans(ev, "bgf.rebin"), _spans(ev, "bgf.step"))
+    for name in ("bgf.rebin", "bgf.rebin.exchange", "bgf.read.rebin_counts",
+                 "bgf.read.live"):
+        assert len(_spans(ev, name)) == rebins, name
+        assert _inside(_spans(ev, name), _spans(ev, "bgf.rebin")), name
+    assert _inside(_read_spans(ev), _spans(ev, "bgf.step"))
+
+
+def _slab_outputs() -> dict:
+    sess = _slab_session()
+    sess.run(STEPS)
+    return {f: getattr(sess.sim, f)
+            for f in sess.sim.__dataclass_fields__}
+
+
+def test_slab_traced_and_untraced_runs_are_bitwise_equal():
+    plain = _slab_outputs()
+    traced, _ = _traced(_slab_outputs)
+    for f, v in plain.items():
+        if isinstance(v, list):
+            assert len(v) == len(traced[f]), f
+            assert all(_same(a, b) for a, b in zip(v, traced[f])), f
+        else:
+            assert _same(v, traced[f]), f
+
+
+def test_slab_spans_add_no_torch_operation(monkeypatch):
+    def ops(ev):
+        return collections.Counter(n for n, *_ in ev
+                                   if not n.startswith("bgf."))
+
+    _slab_outputs()
+    _, spanned = _traced(_slab_outputs)
+    for mod in (vs, shard_verlet):
+        monkeypatch.setattr(mod, "span", lambda name: contextlib.nullcontext())
+    _, bare = _traced(_slab_outputs)
+    assert {n for n, *_ in spanned if n.startswith("bgf.")} == SLAB_NAMES
     assert not [n for n, *_ in bare if n.startswith("bgf.")]
     assert ops(spanned) == ops(bare)
